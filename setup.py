@@ -15,7 +15,10 @@ setup(
         "regression + on-device PnP (JAX/Flax/Pallas rebuild of the DREAM "
         "pipeline)"
     ),
-    packages=find_packages(include=["dream_tpu", "dream_tpu.*"]),
+    packages=find_packages(
+        include=["dream_tpu", "dream_tpu.*", "dream_tpu_torch", "dream_tpu_torch.*"]
+    ),
+    package_data={"dream_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",
