@@ -8,32 +8,55 @@ Run from the repository root with no arguments:
 Phases, each ending with one JSON progress line on stdout:
 
 1. the card's name and power limit, as nvidia-smi reports them;
-2. build the CUDA score kernel (dream_tpu_torch/csrc/score_kernel.cu) with
-   nvcc for sm_90a, and time the build;
-3. hold the kernel against its plain torch version on the card: f32 belief
-   maps (Gaussian blobs plus noise) at 100x100 (N=448), at the vgg-Q batch
-   shape (N=112), at 400x400 (N=14) and at an odd 37x53; peak counts must be
-   equal, and on valid peaks coords agree to 1e-4 and scores to 1e-5;
-4. the main path: load the vgg-Q r5 checkpoint and its YAML sidecar through
-   the port, render the seed-99 64-frame 640x480 panda holdout in memory,
-   and run evaluate_frames in float32 (TF32 off for matmuls and cuDNN); the
-   kernel's launch counter must have gone up, and the metrics must meet
-   bounds around trained_models/results_r5/eval_vggq_r5/analysis_results.txt
-   (a bf16 TPU run, so exact equality is not expected);
-5. timings with CUDA events after warm-up: the kernel and its plain version
-   at the vgg-Q shape, the model forward at B=16, and frames/s of the whole
-   evaluation loop.
+2. build both CUDA kernels (dream_tpu_torch/csrc/score_kernel.cu and
+   warp_kernel.cu) with nvcc for sm_90a, one nvcc each, started together;
+   the build time and ptxas's registers and spills;
+3. hold the score kernel against its plain torch version on the card: f32
+   belief maps (Gaussian blobs plus noise) at 100x100 (N=448), at the vgg-Q
+   batch shape (N=112), at 400x400 (N=14) and at an odd 37x53; peak counts
+   must be equal, and on valid peaks coords agree to 1e-4 and scores to 1e-5;
+4. hold the warp kernel against its plain torch version on the card: 0-255
+   f32 images at the training shape [32, 400, 400, 3] under in-range random
+   affines, the extreme in-range affine, an out-of-range affine that folds
+   more than once and the identity, and at an odd [3, 37, 53, 3]; the max
+   abs error must be <= 2e-3 and the identity exact;
+5. the evaluation path: load the vgg-Q r5 checkpoint and its YAML sidecar
+   through the port, render the seed-99 64-frame 640x480 panda holdout in
+   memory, and run evaluate_frames in float32 (TF32 off for matmuls and
+   cuDNN); the score kernel's launch counter must have gone up, and the
+   metrics must meet bounds around
+   trained_models/results_r5/eval_vggq_r5/analysis_results.txt (a bf16 TPU
+   run, so exact equality is not expected);
+6. the training path: a vgg-Q network from the r5 sidecar with the port's
+   initial parameters (seed 0), 32 frames rendered at 640x480 (seed 0, not
+   the holdout), train_raw steps at batch 32 with augmentation and EMA on
+   (the warp kernel must launch once a step, every loss be finite); then a
+   short run on one fixed batch with augmentation off must end below its
+   first loss; the same augmented step from the same state and seeds through
+   the kernel and through the plain warp must give losses within 1e-5
+   relative (cuDNN deterministic); and a save to a temporary directory,
+   reloaded through the port, must give bit-equal parameters and identical
+   belief maps;
+7. timings with CUDA events after warm-up: the score kernel and its plain
+   version at the vgg-Q shape, the model forward at B=16 and frames/s of the
+   evaluation loop; the warp kernel (with and without its inverse), its
+   plain version and F.grid_sample at [32, 400, 400, 3]; the train step at
+   B=32, split into the batch processor, forward, forward+backward and
+   forward+backward+optimizer; peak device memory of training; and one
+   step under torch.profiler: the device's busy share and longest kernels.
 
 Then a line listing the kernels with their measurements, and as the last
 line {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
 before that line.  Without CUDA the script exits non-zero at once.
 """
 
+import copy
 import json
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -47,6 +70,11 @@ REFERENCE = os.path.join(ROOT, "trained_models/results_r5/eval_vggq_r5/analysis_
 # H100 SXM peaks (NVIDIA data sheet): HBM rate, float32 off the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+TRAIN_BATCH = 32
+AUGMENTED_STEPS = 3
+FIXED_BATCH_STEPS = 6
+WARP_ATOL = 2e-3
+STEP_LOSS_RTOL = 1e-5
 
 
 def progress(phase, **fields):
@@ -138,16 +166,144 @@ def kernel_bound_ms(n, h, w):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def warp_inputs(n, h, w, kind, seed):
+    """0-255 f32 images and [n, 2, 3] forward affines on the card."""
+    from dream_tpu_torch.data.augment import DEFAULT_AUGMENT, affine_matrices, sample_augment_params
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    images = torch.rand((n, h, w, 3), generator=g, device="cuda") * 255.0
+    ones = torch.ones(n, device="cuda")
+    apply = ones > 0
+    if kind == "random":
+        cfg = DEFAULT_AUGMENT._replace(p_shift_scale_rotate=1.0)
+        affines = sample_augment_params(g, n, h, w, cfg).affines
+    elif kind == "extreme":  # the TPU kernel's worst case: folds on every side
+        affines = affine_matrices(apply, 15 * ones, 0.9 * ones, 0.0625 * w * ones,
+                                  -0.0625 * h * ones, h, w)
+    elif kind == "multifold":  # outside the augmentation's range, folds twice or more
+        affines = affine_matrices(apply, 70 * ones, 0.3 * ones, 1.7 * w * ones,
+                                  -2.3 * h * ones, h, w)
+    else:
+        affines = torch.tensor([[1.0, 0, 0], [0, 1.0, 0]], device="cuda").expand(n, 2, 3)
+    return images, affines
+
+
+def compare_warp(images, affines, identity):
+    """Warp kernel vs plain on the card; returns the largest error."""
+    from dream_tpu_torch.ops.warp import warp_batch_kernel, warp_batch_plain
+
+    out = warp_batch_kernel(images, affines)
+    ref = warp_batch_plain(images, affines)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    if identity and not torch.equal(out, images):
+        raise AssertionError("the warp kernel changed an image under the identity affine")
+    if not err <= WARP_ATOL:
+        raise AssertionError(f"warp kernel differs from plain by {err} (bound {WARP_ATOL})")
+    return err
+
+
+def warp_bound_ms(n, h, w, c):
+    """Least time for the warp's work on an H100: read each image value once,
+    write each output value once, read the [n, 6] inverse; ~30 flops a pixel
+    for the coordinates, fold and weights, 11 a channel for the taps."""
+    bytes_moved = 2 * n * h * w * c * 4 + n * 6 * 4
+    flops = n * h * w * (30 + 11 * c)
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def grid_sample_warp(images_nchw, inverse):
+    """The yardstick: F.grid_sample with reflection padding and
+    align_corners=True (reflect-101 about the border pixels' centres) on the
+    inverse-affine grid."""
+    import torch.nn.functional as F
+
+    n, _, h, w = images_nchw.shape
+    ys, xs = torch.meshgrid(torch.arange(h, device="cuda", dtype=torch.float32),
+                            torch.arange(w, device="cuda", dtype=torch.float32), indexing="ij")
+    i = inverse[:, :, None, None]
+    src_x = i[:, 0] * xs + i[:, 1] * ys + i[:, 2]
+    src_y = i[:, 3] * xs + i[:, 4] * ys + i[:, 5]
+    grid = torch.stack([src_x / (w - 1) * 2 - 1, src_y / (h - 1) * 2 - 1], dim=-1)
+
+    def run():
+        return F.grid_sample(images_nchw, grid, mode="bilinear", padding_mode="reflection",
+                             align_corners=True)
+
+    return run
+
+
+def profile_busy(fn):
+    """Wall ms of ``fn()`` unprofiled and under torch.profiler, the device's
+    busy ms in the profiled run (the sum of device-side events, which counts
+    overlapping kernels twice), launches and the five longest kernels."""
+    from torch.autograd import DeviceType
+
+    def timed():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    wall_ms = timed()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        wall_ms_profiled = timed()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+    def device_us(e):
+        return float(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)))
+
+    busy_ms = sum(device_us(e) for e in events) / 1e3
+    top = sorted(events, key=device_us, reverse=True)[:5]
+    return {"wall_ms": wall_ms, "wall_ms_profiled": wall_ms_profiled, "device_busy_ms": busy_ms,
+            "device_idle_share_profiled": 1 - busy_ms / wall_ms_profiled,
+            "device_launches": sum(e.count for e in events),
+            "top_kernels": [{"name": e.key[:80], "count": e.count, "ms": device_us(e) / 1e3}
+                            for e in top]}
+
+
+def snapshot(network):
+    return {
+        "model": copy.deepcopy(network.model.state_dict()),
+        "optimizer": copy.deepcopy(network.optimizer.state_dict()),
+        "scheduler": network.scheduler.state_dict(),
+        "ema": {k: v.clone() for k, v in network.ema_params.items()},
+    }
+
+
+def restore(network, snap):
+    """Back to ``snap``; the optimizer adopts the tensors of a state dict it
+    loads, so it gets a copy and the snapshot stays as it was."""
+    network.model.load_state_dict(snap["model"])
+    network.optimizer.load_state_dict(copy.deepcopy(snap["optimizer"]))
+    network.scheduler.load_state_dict(snap["scheduler"])
+    for k, v in snap["ema"].items():
+        network.ema_params[k].copy_(v)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
         return 1
 
     from dream_tpu_torch.analysis import evaluate_frames
+    from dream_tpu_torch.data.dataset import make_batch_processor
     from dream_tpu_torch.data.synthetic import generate_synthetic_frames
-    from dream_tpu_torch.network import create_network_from_config_file
-    from dream_tpu_torch.ops import score_kernel
+    from dream_tpu_torch.network import DreamNetwork, create_network_from_config_file
+    from dream_tpu_torch.ops import cuda_build
     from dream_tpu_torch.ops.score_kernel import score_maps_kernel, score_maps_plain
+    from dream_tpu_torch.ops.warp import inverse_affines, warp_batch_kernel, warp_batch_plain
+    from dream_tpu_torch.utils.config import load_yaml
+
+    kernels_of_port = {"score_kernel": score_maps_kernel, "warp_kernel": warp_batch_kernel}
+
+    def reset_counts():
+        for kernel in kernels_of_port.values():
+            kernel.launches = 0
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -161,23 +317,36 @@ def main():
     progress("card", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
              device=torch.cuda.get_device_name(0))
 
-    # 2. Build.
+    # 2. Build both kernels, one nvcc each, in parallel.
     t0 = time.perf_counter()
-    lib = score_kernel.build(verbose=True)
+    libs = cuda_build.build_all(list(kernels_of_port), verbose=True)
     build_s = time.perf_counter() - t0
-    score_maps_kernel.load()
-    progress("build", seconds=round(build_s, 3), library=os.path.relpath(str(lib), ROOT))
+    for kernel in kernels_of_port.values():
+        kernel.load()
+    progress("build", seconds=round(build_s, 3),
+             libraries={k: os.path.relpath(str(v), ROOT) for k, v in libs.items()},
+             ptxas={k: list(cuda_build.ptxas_report(k).values()) for k in libs})
 
-    # 3. Kernel vs plain on the card.
+    # 3. Score kernel vs plain on the card.
     rng = np.random.RandomState(0)
     errors = {}
     for n, h, w in ((448, 100, 100), (112, 100, 100), (14, 400, 400), (21, 37, 53)):
         err, peaks = compare_kernel(random_maps(rng, n, h, w))
         errors[f"{n}x{h}x{w}"] = {"max_abs_err": err, "peaks": peaks}
-    max_abs_err = max(e["max_abs_err"] for e in errors.values())
-    progress("kernel_vs_plain", shapes=errors)
+    score_err = max(e["max_abs_err"] for e in errors.values())
+    progress("score_kernel_vs_plain", shapes=errors)
 
-    # 4. The main path.
+    # 4. Warp kernel vs plain on the card.
+    warp_errors = {}
+    for (n, h, w), kind in [((TRAIN_BATCH, 400, 400), "random"), ((TRAIN_BATCH, 400, 400), "extreme"),
+                            ((TRAIN_BATCH, 400, 400), "multifold"), ((TRAIN_BATCH, 400, 400), "identity"),
+                            ((3, 37, 53), "random"), ((3, 37, 53), "multifold")]:
+        images, affines = warp_inputs(n, h, w, kind, seed=len(warp_errors))
+        warp_errors[f"{n}x{h}x{w}x3 {kind}"] = compare_warp(images, affines, kind == "identity")
+    warp_err = max(warp_errors.values())
+    progress("warp_kernel_vs_plain", max_abs_err=warp_errors, bound=WARP_ATOL)
+
+    # 5. The evaluation path.
     print(f"allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
     t0 = time.perf_counter()
@@ -188,15 +357,15 @@ def main():
     render_s = time.perf_counter() - t0
     gt = {"projections": holdout["projections"], "positions": holdout["positions"]}
 
-    score_maps_kernel.launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     result = evaluate_frames(network, holdout["images"], gt, holdout["camera_K"], batch_size=16)
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t0
-    launches = score_maps_kernel.launches
-    if launches <= 0:
-        raise AssertionError("the main path did not launch the score kernel")
+    eval_launches = {k: v.launches for k, v in kernels_of_port.items()}
+    if eval_launches["score_kernel"] <= 0:
+        raise AssertionError("the evaluation path did not launch the score kernel")
 
     kp, pnp = result["keypoints"], result["pnp"]
     ref = reference_metrics(REFERENCE)
@@ -210,8 +379,8 @@ def main():
         "l2_error_mean_px": kp["l2_error_mean_px"],
         "add_mean": pnp["add_mean"],
     }
-    progress("main_path", seconds=round(eval_s, 3), load_s=round(load_s, 3),
-             render_s=round(render_s, 3), launches=launches, measured=measured,
+    progress("evaluation_path", seconds=round(eval_s, 3), load_s=round(load_s, 3),
+             render_s=round(render_s, 3), launches=eval_launches, measured=measured,
              reference={k: list(v) if isinstance(v, tuple) else v for k, v in ref.items()})
     failures = []
     if kp["num_gt_inframe"] != ref["inframe_found"][1] or kp["num_gt_outframe"] != ref["outframe_found"][1]:
@@ -227,15 +396,83 @@ def main():
     if not np.isfinite(pnp["add_auc"]) or abs(pnp["add_auc"] - ref["add_auc"]) > 0.03:
         failures.append(f"ADD AUC {pnp['add_auc']} not within 0.03 of {ref['add_auc']}")
     if failures:
-        raise AssertionError("main path misses its bounds: " + "; ".join(failures))
+        raise AssertionError("evaluation path misses its bounds: " + "; ".join(failures))
 
-    # 5. Timings at the vgg-Q main-path shapes.
+    # 6. The training path, at full width and batch 32.
+    t0 = time.perf_counter()
+    frames = generate_synthetic_frames(TRAIN_BATCH, (640, 480), network.keypoint_names, seed=0)
+    train_render_s = time.perf_counter() - t0
+    raw = torch.from_numpy(frames["images"]).cuda()
+    kp_raw = torch.from_numpy(frames["projections"]).float().cuda()
+    trainer = DreamNetwork(load_yaml(CONFIG), device="cuda", seed=0)
+    tcfg = trainer.network_config["training"]["config"]
+    processor_args = (tuple(tcfg["image_raw_resolution"]), trainer.trained_net_input_resolution(),
+                      trainer.trained_net_output_resolution(), trainer.image_preprocessing(),
+                      trainer.image_normalization)
+    augmenting = make_batch_processor(*processor_args, augment=True)
+    trainer.enable_ema(0.999)
+    trainer.enable_fused_training(augmenting)
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    generator = torch.Generator(device="cuda").manual_seed(0)
+    losses = [trainer.train_raw(generator, raw, kp_raw) for _ in range(AUGMENTED_STEPS)]
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = {k: v.launches for k, v in kernels_of_port.items()}
+    losses = [float(x) for x in losses]
+    if train_launches["warp_kernel"] != AUGMENTED_STEPS:
+        raise AssertionError(f"the warp kernel launched {train_launches['warp_kernel']} times "
+                             f"in {AUGMENTED_STEPS} augmented steps")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+
+    fixed = make_batch_processor(*processor_args, augment=False)
+    trainer.enable_fused_training(fixed)
+    fixed_losses = [float(trainer.train_raw(None, raw, kp_raw)) for _ in range(FIXED_BATCH_STEPS)]
+    if not fixed_losses[-1] < fixed_losses[0]:
+        raise AssertionError(f"the fixed-batch run did not lower the loss: {fixed_losses}")
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    snap = snapshot(trainer)
+    step_results = {}
+    for backend in ("auto", "plain"):
+        restore(trainer, snap)
+        trainer.enable_fused_training(make_batch_processor(*processor_args, augment=True,
+                                                           warp_backend=backend))
+        g = torch.Generator(device="cuda").manual_seed(7)
+        step_results[backend] = (float(trainer.train_raw(g, raw, kp_raw)),
+                                 copy.deepcopy(trainer.model.state_dict()))
+    (loss_k, state_k), (loss_p, state_p) = step_results["auto"], step_results["plain"]
+    step_param_diff = max(float((state_k[n] - state_p[n]).abs().max()) for n in state_k)
+    if not abs(loss_k - loss_p) <= STEP_LOSS_RTOL * abs(loss_p):
+        raise AssertionError(f"kernel step loss {loss_k} vs plain step loss {loss_p}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer.save_network(tmp, "smoke")
+        reloaded = create_network_from_config_file(
+            os.path.join(tmp, "smoke.yaml"), os.path.join(tmp, "smoke.msgpack"), device="cuda")
+    saved_state, reloaded_state = trainer.model.state_dict(), reloaded.model.state_dict()
+    if set(saved_state) != set(reloaded_state) or not all(
+            torch.equal(saved_state[k], reloaded_state[k]) for k in saved_state):
+        raise AssertionError("the reloaded checkpoint's parameters differ from the saved ones")
+    x = trainer.preprocess(raw[:4])
+    if not torch.equal(trainer.inference(x)[0], reloaded.inference(x)[0]):
+        raise AssertionError("the reloaded network's belief maps differ")
+    torch.backends.cudnn.deterministic = False
+    progress("training_path", seconds=round(train_s, 3), render_s=round(train_render_s, 3),
+             launches=train_launches, augmented_losses=losses, fixed_batch_losses=fixed_losses,
+             kernel_vs_plain_step={"loss_kernel": loss_k, "loss_plain": loss_p,
+                                   "max_param_diff": step_param_diff},
+             checkpoint_round_trip="bit-equal")
+
+    # 7. Timings.
     maps = random_maps(rng, 112, 100, 100)
-    kernel_ms = cuda_ms(lambda: score_maps_kernel(maps), 50)
-    plain_ms = cuda_ms(lambda: score_maps_plain(maps), 50)
-    kernel_ms_2 = cuda_ms(lambda: score_maps_kernel(maps), 50)
-    plain_ms_2 = cuda_ms(lambda: score_maps_plain(maps), 50)
-    bound_ms, bound_by = kernel_bound_ms(112, 100, 100)
+    score_ms = [cuda_ms(lambda: score_maps_kernel(maps), 50) for _ in range(2)]
+    score_plain_ms = [cuda_ms(lambda: score_maps_plain(maps), 50) for _ in range(2)]
+    score_bound, score_bound_by = kernel_bound_ms(112, 100, 100)
     x = network.preprocess(torch.from_numpy(holdout["images"][:16]))
     x = x.permute(0, 3, 1, 2)
     with torch.no_grad():
@@ -245,13 +482,59 @@ def main():
     evaluate_frames(network, holdout["images"], gt, holdout["camera_K"], batch_size=16)
     torch.cuda.synchronize()
     loop_s = time.perf_counter() - t0
+
+    images, affines = warp_inputs(TRAIN_BATCH, 400, 400, "random", seed=99)
+    inverse = inverse_affines(affines)
+    nchw = images.permute(0, 3, 1, 2).contiguous()
+    grid_sample = grid_sample_warp(nchw, inverse)
+    grid_diff = float((grid_sample().permute(0, 2, 3, 1) - warp_batch_kernel(images, affines)).abs().max())
+    warp_ms, warp_launch_ms, warp_plain_ms, grid_ms = [], [], [], []
+    for _ in range(2):  # kernel, plain, library, in turns
+        warp_ms.append(cuda_ms(lambda: warp_batch_kernel(images, affines), 20))
+        warp_launch_ms.append(cuda_ms(lambda: warp_batch_kernel.launch(images, inverse), 20))
+        warp_plain_ms.append(cuda_ms(lambda: warp_batch_plain(images, affines), 10))
+        grid_ms.append(cuda_ms(grid_sample, 20))
+    warp_bound, warp_bound_by = warp_bound_ms(TRAIN_BATCH, 400, 400, 3)
+
+    trainer.enable_fused_training(augmenting)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(lambda: trainer.train_raw(generator, raw, kp_raw), 3, warmup=1)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    processor_ms = cuda_ms(lambda: augmenting(generator, raw, kp_raw), 5, warmup=1)
+    batch = augmenting(generator, raw, kp_raw)
+    update_ms = cuda_ms(lambda: trainer.train([batch["image_rgb_input"]], batch["belief_maps"]),
+                        3, warmup=1)
+    x32, target = batch["image_rgb_input"].permute(0, 3, 1, 2), batch["belief_maps"]
+    with torch.no_grad():
+        forward_b32_ms = cuda_ms(lambda: trainer.model(x32), 3, warmup=1)
+
+    def forward_backward():
+        trainer.model.zero_grad(set_to_none=True)
+        trainer.criterion(trainer.model(x32), target).backward()
+
+    forward_backward_ms = cuda_ms(forward_backward, 3, warmup=1)
+    step_profile = profile_busy(lambda: trainer.train_raw(generator, raw, kp_raw))
     timings = {
-        "score_kernel_ms": [kernel_ms, kernel_ms_2],
-        "score_plain_ms": [plain_ms, plain_ms_2],
-        "score_bound_ms": bound_ms,
+        "score_kernel_ms": score_ms,
+        "score_plain_ms": score_plain_ms,
+        "score_bound_ms": score_bound,
         "model_forward_b16_ms": forward_ms,
         "eval_loop_frames_per_s": 64 / loop_s,
         "eval_loop_s": loop_s,
+        "warp_kernel_ms": warp_ms,
+        "warp_kernel_launch_only_ms": warp_launch_ms,
+        "warp_plain_ms": warp_plain_ms,
+        "warp_grid_sample_ms": grid_ms,
+        "warp_grid_sample_max_abs_diff": grid_diff,
+        "warp_bound_ms": warp_bound,
+        "train_step_ms": step_ms,
+        "train_images_per_s": TRAIN_BATCH / step_ms * 1e3,
+        "train_batch_processor_ms": processor_ms,
+        "train_forward_backward_optimizer_ms": update_ms,
+        "train_forward_b32_no_grad_ms": forward_b32_ms,
+        "train_forward_backward_ms": forward_backward_ms,
+        "train_peak_memory_gib": peak_bytes / 2**30,
+        "train_step_profile": step_profile,
     }
     progress("timings", **timings)
 
@@ -259,14 +542,26 @@ def main():
         "name": "score_kernel",
         "route": "cuda",
         "source": "dream_tpu_torch/csrc/score_kernel.cu",
-        "replaces": "dream_tpu/ops/pallas_kernels.py:41",
-        "launches": launches,
-        "max_abs_err": max_abs_err,
-        "ms": min(kernel_ms, kernel_ms_2),
-        "plain_ms": min(plain_ms, plain_ms_2),
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        "replaces": "dream_tpu/ops/pallas_kernels.py:40",
+        "launches": eval_launches["score_kernel"],
+        "max_abs_err": score_err,
+        "ms": min(score_ms),
+        "plain_ms": min(score_plain_ms),
+        "bound_ms": score_bound,
+        "bound_by": score_bound_by,
         "library_ms": None,
+    }, {
+        "name": "warp_kernel",
+        "route": "cuda",
+        "source": "dream_tpu_torch/csrc/warp_kernel.cu",
+        "replaces": "dream_tpu/ops/pallas_warp.py:74",
+        "launches": train_launches["warp_kernel"],
+        "max_abs_err": warp_err,
+        "ms": min(warp_ms),
+        "plain_ms": min(warp_plain_ms),
+        "bound_ms": warp_bound,
+        "bound_by": warp_bound_by,
+        "library_ms": min(grid_ms),
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

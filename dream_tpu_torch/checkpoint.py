@@ -1,4 +1,4 @@
-"""Read flax msgpack checkpoints and carry their weights into torch modules.
+"""Read and write flax msgpack checkpoints, and map their weights to torch.
 
 The JAX package saves parameters with ``flax.serialization.to_bytes``: a
 msgpack map of string keys whose array leaves are msgpack extension type 1,
@@ -13,12 +13,19 @@ so a 44 MB checkpoint decodes in milliseconds.
 ``a/b/kernel`` (HWIO) becomes ``a.b.weight`` (OIHW), ``bias`` stays
 ``bias``, and float16 storage is widened to float32, as
 ``DreamNetwork.load_network_params`` widens it on the JAX side.
+
+The write side is the inverse: :func:`params_to_flax` maps a state dict
+back onto the flax tree, and :func:`msgpack_serialize` encodes it in the
+bytes ``flax.serialization.to_bytes`` writes for a tree that has been
+through jax's tree functions (map keys sorted, as in the committed
+checkpoints), so ``dream_tpu``'s ``load_network_params`` reads a checkpoint
+the port saved.
 """
 
 from __future__ import annotations
 
 import struct
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -192,3 +199,97 @@ def params_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
     walk(params, "")
     return state
+
+
+def params_to_flax(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """Map a torch ``state_dict`` onto the flax variables tree.
+
+    The inverse of :func:`params_from_flax`: ``a.b.weight`` (OIHW) becomes
+    ``a/b/kernel`` (HWIO), ``bias`` keeps its name, every leaf a C-order
+    float32 numpy array; returns ``{"params": {...}}``.
+    """
+    params: Dict[str, Any] = {}
+    for name, tensor in state.items():
+        *path, leaf = name.split(".")
+        arr = tensor.detach().to("cpu", torch.float32).numpy()
+        node = params
+        for part in path:
+            node = node.setdefault(part, {})
+        if leaf == "weight" and arr.ndim == 4:
+            node["kernel"] = np.ascontiguousarray(arr.transpose(2, 3, 1, 0))
+        elif leaf == "bias" and arr.ndim == 1:
+            node["bias"] = np.ascontiguousarray(arr)
+        else:
+            raise ValueError(f"torch leaf {name} {tuple(arr.shape)} has no flax counterpart")
+    return {"params": params}
+
+
+def _pack_header(out: bytearray, n: int, fix_base: Optional[int], fix_max: int, codes) -> None:
+    """Append a str/bin/array/map length header, or an unsigned int, in
+    msgpack's shortest form."""
+    if fix_base is not None and n <= fix_max:
+        out.append(fix_base | n)
+        return
+    for code, fmt in codes:
+        if n < 1 << (8 * struct.calcsize(fmt)):
+            out.append(code)
+            out += struct.pack(fmt, n)
+            return
+    raise ValueError(f"msgpack length {n} too large")
+
+
+def _pack(out: bytearray, value: Any) -> None:
+    """Append ``value``: the types a flax parameter tree and its array
+    payloads hold (str-keyed maps, lists, str, bytes, shapes' ints, arrays)."""
+    if isinstance(value, dict):
+        _pack_header(out, len(value), 0x80, 15, ((0xDE, ">H"), (0xDF, ">I")))
+        for key in sorted(value):
+            if not isinstance(key, str):
+                raise ValueError(f"msgpack map keys must be str, got {key!r}")
+            _pack(out, key)
+            _pack(out, value[key])
+    elif isinstance(value, (list, tuple)):
+        _pack_header(out, len(value), 0x90, 15, ((0xDC, ">H"), (0xDD, ">I")))
+        for item in value:
+            _pack(out, item)
+    elif isinstance(value, str):
+        data = value.encode("utf-8")
+        _pack_header(out, len(data), 0xA0, 31, ((0xD9, ">B"), (0xDA, ">H"), (0xDB, ">I")))
+        out += data
+    elif isinstance(value, bytes):
+        _pack_header(out, len(value), None, -1, ((0xC4, ">B"), (0xC5, ">H"), (0xC6, ">I")))
+        out += value
+    elif isinstance(value, int) and not isinstance(value, bool) and value >= 0:
+        _pack_header(out, value, 0x00, 0x7F,
+                     ((0xCC, ">B"), (0xCD, ">H"), (0xCE, ">I"), (0xCF, ">Q")))
+    elif isinstance(value, np.ndarray):
+        if value.dtype.hasobject or value.dtype.isalignedstruct:
+            raise ValueError("object and structured arrays cannot be written")
+        if value.nbytes >= 1 << 30:
+            raise ValueError("arrays of 1 GiB or more (which flax chunks) cannot be written")
+        payload = bytearray()
+        _pack(payload, [list(value.shape), value.dtype.name, value.tobytes("C")])
+        fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if len(payload) in fixext:
+            out.append(fixext[len(payload)])
+        else:
+            _pack_header(out, len(payload), None, -1, ((0xC7, ">B"), (0xC8, ">H"), (0xC9, ">I")))
+        out += struct.pack(">b", _EXT_NDARRAY)
+        out += payload
+    else:
+        raise ValueError(f"cannot write {type(value).__name__} to a flax checkpoint")
+
+
+def msgpack_serialize(tree: Dict[str, Any]) -> bytes:
+    """Encode nested dicts of numpy arrays as ``flax.serialization.to_bytes``
+    does for a tree jax has mapped over: string-keyed maps with sorted keys,
+    each array as msgpack extension type 1 holding ``[shape, dtype name,
+    C-order bytes]``."""
+    out = bytearray()
+    _pack(out, tree)
+    return bytes(out)
+
+
+def save_flax_checkpoint(path: str, tree: Dict[str, Any]) -> None:
+    with open(path, "wb") as f:
+        f.write(msgpack_serialize(tree))

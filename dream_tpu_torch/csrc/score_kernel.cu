@@ -1,6 +1,6 @@
 // Peak-score kernel for belief-map decoding, Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel dream_tpu/ops/pallas_kernels.py:41
+// Replaces the Pallas TPU kernel dream_tpu/ops/pallas_kernels.py:40
 // (_score_kernel).  For each f32 [H, W] belief map it computes
 //   blurred = T_h @ map @ T_w^T   (scipy-'reflect' sigma-3 Gaussian),
 //   peak    = blurred >= its 4 neighbours (0 outside the map) && blurred > thr,

@@ -6,17 +6,21 @@ floor max-pools between them, two nearest-x2 upsample blocks, and a
 64 -> 32 -> n_keypoints belief head, giving quarter-resolution belief maps.
 Submodules carry the flax tree's names (``down1.conv0``,
 ``upsample4.conv1``, ``head.conv2``), so ``checkpoint.params_from_flax``
-output loads with ``load_state_dict(strict=True)``.  The skip, deconv,
-full-output, multistage and soft-argmax variants are not ported yet.
+output loads with ``load_state_dict(strict=True)``.  Parameters start
+from flax's distributions (``layers.init_conv_``), drawn in the order of
+the modules from an explicit generator.  The skip, deconv, full-output,
+multistage and soft-argmax variants are not ported yet.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dream_tpu_torch.models.layers import conv3x3, max_pool_torch, upsample_nearest
+from dream_tpu_torch.models.layers import conv3x3, init_conv_, max_pool_torch, upsample_nearest
 
 
 class _VggDownBlock(nn.Module):
@@ -67,10 +71,12 @@ class DreamHourglass(nn.Module):
     """Single-stage hourglass belief-map regressor, upsample decoder.
 
     Input ``[B, n_image_input_channels, H, W]``; output ``[B, n_keypoints,
-    (H//16)*4, (W//16)*4]`` float32 belief maps.
+    (H//16)*4, (W//16)*4]`` float32 belief maps.  ``generator`` seeds the
+    initial parameters (the global CPU generator if None).
     """
 
-    def __init__(self, n_keypoints: int, n_image_input_channels: int = 3):
+    def __init__(self, n_keypoints: int, n_image_input_channels: int = 3,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         self.n_keypoints = n_keypoints
         self.down1 = _VggDownBlock(n_image_input_channels, 64, 2)
@@ -81,6 +87,13 @@ class DreamHourglass(nn.Module):
         self.upsample4 = _UpsampleBlock(512, 256, 256)
         self.upsample3 = _UpsampleBlock(256, 128, 64)
         self.head = _BeliefHead(n_keypoints)
+        self.reset_parameters(generator)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """Redraw every conv as flax's ``nn.Conv`` defaults, in module order."""
+        for module in self.modules():
+            if isinstance(module, nn.Conv2d):
+                init_conv_(module, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.down1(x)

@@ -1,6 +1,6 @@
 """The peak-score kernel: CUDA for CUDA tensors, plain torch for CPU tensors.
 
-Replaces ``dream_tpu/ops/pallas_kernels.py:41`` (``_score_kernel``, called
+Replaces ``dream_tpu/ops/pallas_kernels.py:40`` (``_score_kernel``, called
 through ``peaks_from_belief_maps_pallas``).  For each f32 ``[H, W]`` map it
 computes the scipy-'reflect' sigma-3 Gaussian blur, the 4-neighbour ``>=``
 local max with zero fill at the borders and ``> 0.01``, and returns the
@@ -16,9 +16,10 @@ count per map.
   package).  The CPU path and the yardstick for the kernel.
 - :data:`score_maps_kernel`: the wrapper of ``csrc/score_kernel.cu``.  The
   source is compiled with ``nvcc`` for ``sm_90a`` into a shared library with
-  a C interface under ``dream_tpu_torch/_build/`` on first use and loaded
-  with ``ctypes``; nothing is built at import.  ``score_maps_kernel.launches``
-  counts its launches.
+  a C interface under ``dream_tpu_torch/_build/`` on first use
+  (:mod:`dream_tpu_torch.ops.cuda_build`) and loaded with ``ctypes``;
+  nothing is built at import.  ``score_maps_kernel.launches`` counts its
+  launches.
 - :func:`score_maps`: picks by the tensor's device, never by catching an
   error: a CUDA tensor goes to the kernel, a CPU tensor to the plain version.
 """
@@ -27,12 +28,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import sys
-import tempfile
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
@@ -40,14 +35,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dream_tpu_torch.ops import cuda_build
+
 PEAK_THRESHOLD = 0.01  # reference dream/image_proc.py:925
 PEAK_BLUR_SIGMA = 3  # reference dream/image_proc.py:926
 
-_PACKAGE_DIR = Path(__file__).resolve().parent.parent
-SOURCE = _PACKAGE_DIR / "csrc" / "score_kernel.cu"
-BUILD_DIR = _PACKAGE_DIR / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
 # Shared memory a block aims for, and the most it may take on sm_90: the
 # 227 KB opt-in limit less the kernel's 32 bytes of static warp sums.
 _SMEM_TARGET = 96 * 1024
@@ -125,44 +117,10 @@ def score_maps_plain(maps: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return scored, count
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    path = os.path.join(cuda_home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
-    return path
-
-
 def build(verbose: bool = False) -> Path:
-    """Compile ``score_kernel.cu`` into ``_build/`` unless already built.
-
-    The library's name carries a hash of the source and flags, so an edited
-    source builds anew.  ``verbose`` prints ptxas's register and shared
-    memory report to stderr.  Returns the library's path.
-    """
-    source = SOURCE.read_bytes()
-    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libscore_kernel_{digest}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, str(SOURCE)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        if verbose:
-            print(proc.stderr.strip(), file=sys.stderr, flush=True)
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return lib
+    """Compile ``csrc/score_kernel.cu`` into ``_build/`` unless already built;
+    returns the library's path (see :mod:`dream_tpu_torch.ops.cuda_build`)."""
+    return cuda_build.build("score_kernel", verbose=verbose)
 
 
 def rows_per_block(h: int, w: int) -> int:
@@ -186,7 +144,7 @@ class ScoreKernel:
 
     def load(self) -> ctypes.CDLL:
         if self._lib is None:
-            lib = ctypes.CDLL(str(build()))
+            lib = cuda_build.load("score_kernel")
             lib.score_kernel_launch.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,

@@ -1,4 +1,4 @@
-"""YAML config reading without PyYAML.
+"""YAML config reading and writing without PyYAML.
 
 The port runs where PyYAML is not installed, so this module reads the
 block-style YAML subset that the repository's configs and checkpoint
@@ -8,11 +8,15 @@ flow mappings ``{k: v}``, single- and double-quoted strings, ``#``
 comments, and plain scalars resolved as PyYAML's ``safe_load`` resolves
 them (null, bool, int, float, else str).  Anchors, tags, multi-line flow
 collections, block scalars (``|``, ``>``) and multiple documents are not
-part of the subset and raise ``ValueError``.
+part of the subset and raise ``ValueError``.  :func:`save_yaml` writes
+nested dicts, lists and scalars in that subset, laid out as PyYAML's
+``safe_dump`` lays them out, so a sidecar the port writes reads back the
+same through this reader and through PyYAML.
 """
 
 from __future__ import annotations
 
+import os
 import re
 from typing import Any, List, Tuple
 
@@ -290,3 +294,103 @@ def load_yaml(path: str) -> Any:
     """Read a YAML file of the supported subset into dicts and lists."""
     with open(path, "r") as f:
         return load_yaml_str(f.read())
+
+
+# --- writing -------------------------------------------------------------
+
+# A plain string may not start like a number (PyYAML also reads 0x10, 0o7,
+# 1:20 and dates as numbers or timestamps), an indicator, a merge or value key.
+_PLAIN_UNSAFE_START = tuple("-?:,[]{}#&*!|>'\"%@`+.<=0123456789 ")
+
+
+def _scalar_text(value: Any) -> str:
+    """One scalar as YAML text that both this reader and PyYAML read back
+    as the same value."""
+    if hasattr(value, "item") and not isinstance(value, (str, bytes)):
+        value = value.item()  # numpy or torch scalar
+    if value is None:
+        return "null"
+    if isinstance(value, bool):
+        return "true" if value else "false"
+    if isinstance(value, int):
+        return str(value)
+    if isinstance(value, float):
+        if value != value:
+            return ".nan"
+        if value in (float("inf"), float("-inf")):
+            return ".inf" if value > 0 else "-.inf"
+        text = repr(value)
+        if "." not in text:  # 1e-05 is a string to YAML 1.1; 1.0e-05 a float
+            mantissa, _, exponent = text.partition("e")
+            text = f"{mantissa}.0e{exponent}" if exponent else f"{mantissa}.0"
+        return text
+    if not isinstance(value, str):
+        raise ValueError(f"cannot write {type(value).__name__} to YAML")
+    if any(c in value for c in "\n\r\t\0\\") or not value.isprintable():
+        escaped = (value.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+                   .replace("\r", "\\r").replace("\t", "\\t").replace("\0", "\\0"))
+        if not escaped.isprintable():
+            raise ValueError(f"cannot write {value!r} to YAML")
+        return f'"{escaped}"'
+    try:
+        plain = _plain_scalar(value) == value and isinstance(_plain_scalar(value), str)
+    except ValueError:
+        plain = False
+    if (plain and value and not value.startswith(_PLAIN_UNSAFE_START)
+            and value == value.strip() and ": " not in value and " #" not in value
+            and not value.endswith(":")):
+        return value
+    return "'" + value.replace("'", "''") + "'"
+
+
+def _emit(node: Any, indent: int, lines: List[str]) -> None:
+    pad = " " * indent
+    if isinstance(node, dict):
+        for key, value in node.items():
+            key_text = _scalar_text(key)
+            if isinstance(value, dict) and value:
+                lines.append(f"{pad}{key_text}:")
+                _emit(value, indent + 2, lines)
+            elif isinstance(value, (list, tuple)) and len(value):
+                lines.append(f"{pad}{key_text}:")
+                _emit(value, indent, lines)  # PyYAML's style: "- " under the key
+            else:
+                lines.append(f"{pad}{key_text}: {_inline_text(value)}")
+        return
+    for item in node:
+        if isinstance(item, (dict, list, tuple)) and len(item):
+            inner: List[str] = []
+            _emit(item, indent + 2, inner)
+            inner[0] = f"{pad}- " + inner[0][indent + 2 :]
+            lines.extend(inner)
+        else:
+            lines.append(f"{pad}- {_inline_text(item)}")
+
+
+def _inline_text(value: Any) -> str:
+    if isinstance(value, dict):
+        return "{}"
+    if isinstance(value, (list, tuple)):
+        return "[]"
+    return _scalar_text(value)
+
+
+def dump_yaml_str(data: Any) -> str:
+    """Block-style YAML of nested dicts, lists and scalars, in the subset
+    :func:`load_yaml_str` reads (and as PyYAML's ``safe_dump`` lays it out)."""
+    if isinstance(data, (dict, list, tuple)):
+        if not len(data):
+            return _inline_text(data) + "\n"
+        lines: List[str] = []
+        _emit(data, 0, lines)
+        return "\n".join(lines) + "\n"
+    return _scalar_text(data) + "\n"
+
+
+def save_yaml(data: Any, path: str, overwrite: bool = False) -> None:
+    """Write a YAML sidecar (port of ``dream_tpu/utils/config.py:44``);
+    refuses to overwrite an existing file unless ``overwrite``."""
+    if not overwrite and os.path.exists(path):
+        raise FileExistsError(f'Output file already exists in "{path}".')
+    with open(path, "w") as f:
+        f.write(dump_yaml_str(data))

@@ -1,16 +1,18 @@
-"""The port's YAML reader, flax msgpack reader and weight mapping, and the
-rule that the port imports nothing outside torch, numpy, scipy and the
-standard library.
+"""The port's YAML reader and writer, flax msgpack reader and writer and
+weight mapping, and the rule that the port imports nothing outside torch,
+numpy, scipy and the standard library.
 
 The YAML reader is held against ``yaml.safe_load`` on every YAML file the
-repository tracks; the msgpack reader against
-``flax.serialization.msgpack_restore`` bit for bit.
+repository tracks, and what the writer writes reads back the same through
+both; the msgpack reader against ``flax.serialization.msgpack_restore`` bit
+for bit, and the writer's encoding against the ``msgpack`` package's.
 """
 
 import ast
 import glob
 import os
 
+import msgpack
 import numpy as np
 import pytest
 import torch
@@ -19,7 +21,7 @@ from flax import serialization
 
 from dream_tpu_torch import checkpoint
 from dream_tpu_torch.models import DreamHourglass
-from dream_tpu_torch.utils.config import load_yaml, load_yaml_str
+from dream_tpu_torch.utils.config import dump_yaml_str, load_yaml, load_yaml_str
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 YAML_FILES = sorted(
@@ -121,6 +123,60 @@ def test_params_from_flax_layout_and_dtype():
     )
     model = DreamHourglass(n_keypoints=7)
     model.load_state_dict(state, strict=True)
+
+
+@pytest.mark.parametrize("relpath", YAML_FILES)
+def test_yaml_writer_round_trips_the_repo_files(relpath):
+    data = load_yaml(os.path.join(ROOT, relpath))
+    text = dump_yaml_str(data)
+    assert load_yaml_str(text) == data == yaml.safe_load(text)
+
+
+def test_yaml_writer_quotes_what_would_read_back_otherwise():
+    data = {
+        "floats": [1e-05, 0.0001, 1e20, -0.0, float("inf"), float("-inf")],
+        "strings": ["null", "1.0", "", "a: b", "x#y", "a #b", "- a", "yes", "Yes", "~", "0x10",
+                    "1_000", "2001-12-14", "1:20", "=", "<<", "  lead", "it's", "tab\there",
+                    "panda_link0", "shrink-and-crop", "_scratch/r4/mix4096"],
+        "nested": [{"name": "x", "v": [1, 2.5]}, {"name": "y"}, [[1, 2], [3]], {}, []],
+        7: {"flags": [True, False, None]},
+    }
+    text = dump_yaml_str(data)
+    assert load_yaml_str(text) == data == yaml.safe_load(text)
+    assert "panda_link0\n" in text and "'null'" in text
+
+
+@pytest.mark.parametrize(
+    "value",
+    [0, 127, 128, 255, 256, 65535, 65536, 2**32, "x" * 31, "x" * 32, "x" * 300, "x" * 70000,
+     b"", b"x" * 300, b"x" * 70000, [1] * 15, [1] * 16, [1] * 70000,
+     {f"k{i}": i for i in range(16)}],
+    ids=lambda v: f"{type(v).__name__}{len(v) if hasattr(v, '__len__') else v}",
+)
+def test_msgpack_writer_encodes_as_msgpack(value):
+    out = bytearray()
+    checkpoint._pack(out, value)
+    if isinstance(value, dict):  # the writer sorts map keys, as jax's trees are sorted
+        value = dict(sorted(value.items()))
+    assert bytes(out) == msgpack.packb(value, use_bin_type=True)
+
+
+def test_params_to_flax_inverts_params_from_flax():
+    with open(VGGQ_R5, "rb") as f:
+        data = f.read()
+    state = checkpoint.params_from_flax(checkpoint.msgpack_restore(data))
+    tree = checkpoint.params_to_flax(state)
+    back = checkpoint.params_from_flax(tree)
+    assert set(back) == set(state)
+    for name, leaf in state.items():
+        assert torch.equal(back[name], leaf), name
+    # The committed checkpoint is float16; written as float32, flax reads
+    # back the same values.
+    restored = serialization.msgpack_restore(checkpoint.msgpack_serialize(tree))
+    kernel = restored["params"]["down1"]["conv0"]["kernel"]
+    assert kernel.dtype == np.float32 and kernel.shape == (3, 3, 3, 64)
+    with pytest.raises(ValueError):
+        checkpoint.params_to_flax({"bn.running_mean": torch.zeros(3)})
 
 
 def test_params_from_flax_rejects_unknown_leaves():
