@@ -45,6 +45,31 @@ Phases, each ending with one JSON progress line on stdout:
    forward+backward+optimizer; peak device memory of training; and one
    step under torch.profiler: the device's busy share and longest kernels.
 
+8. hold the int8 conv kernel (dream_tpu_torch/csrc/conv_int8_kernel.cu)
+   against its plain torch version on the card, bit for bit: the 19 links
+   of vgg-Q's int8 chain at B=2, each also without its ReLU where it has
+   one, a two-link chain, and odd shapes ([1, 25, 50, 64] -> 64, H and W
+   that are not multiples of the 8x16 tile, Co not a multiple of 64)
+   (phase 11 adds the 19 links at B=16, the main path's batch);
+9. the int8 evaluation path on the phase-5 holdout, against three bf16 TPU
+   reports with phase 5's bounds: the float r4 vgg-Q
+   (trained_models/results_r4/eval_vggq_plain), the same checkpoint with
+   int8_calibration_frames=32 (results_r5/eval_vggq_ptq), and the QAT
+   checkpoint (its sidecar says quant_mode: qat) calibrated the same way
+   (results_r5/eval_vggq_qat_int8); each int8 run must launch the conv
+   kernel 19 times a batch of 16 and the score kernel, and the PTQ belief
+   maps of one batch must correlate with the float maps at >= 0.99;
+10. two augmented train_raw steps of the QAT network at batch 32 from its
+   checkpoint: finite losses, one warp launch a step;
+11. at each of the 19 links at B=16, the main path's shapes: the kernel
+   against its plain version bit for bit, and torch._int_mm on the link's
+   im2col matrix against the exact accumulator; then, with CUDA events
+   after warm-up, the kernel, its plain version and torch._int_mm (the
+   im2col built beforehand, outside the timing), per link and summed over
+   the chain; the int8 forward against the float forward at B=16, and its
+   longest kernels under torch.profiler; frames/s of the int8 evaluation
+   loop.
+
 Then a line listing the kernels with their measurements, and as the last
 line {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
 before that line.  Without CUDA the script exits non-zero at once.
@@ -66,10 +91,23 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CHECKPOINT = os.path.join(ROOT, "trained_models/results_r5/vggq/dream_vgg_q_r5.msgpack")
 CONFIG = os.path.join(ROOT, "trained_models/results_r5/vggq/dream_vgg_q_r5.yaml")
 REFERENCE = os.path.join(ROOT, "trained_models/results_r5/eval_vggq_r5/analysis_results.txt")
+R4_CHECKPOINT = os.path.join(ROOT, "trained_models/results_r4/vggq/dream_vgg_q_r4.msgpack")
+R4_CONFIG = os.path.join(ROOT, "trained_models/results_r4/vggq/dream_vgg_q_r4.yaml")
+QAT_CHECKPOINT = os.path.join(ROOT, "trained_models/results_r5/vggq_qat/dream_vgg_q_qat_r5.msgpack")
+QAT_CONFIG = os.path.join(ROOT, "trained_models/results_r5/vggq_qat/dream_vgg_q_qat_r5.yaml")
+INT8_REFERENCES = {
+    "float_r4": "trained_models/results_r4/eval_vggq_plain/analysis_results.txt",
+    "ptq_r4": "trained_models/results_r5/eval_vggq_ptq/analysis_results.txt",
+    "ptq_qat": "trained_models/results_r5/eval_vggq_qat_int8/analysis_results.txt",
+}
 
-# H100 SXM peaks (NVIDIA data sheet): HBM rate, float32 off the tensor cores.
+# H100 SXM peaks (NVIDIA data sheet): HBM rate, float32 off the tensor
+# cores, dense int8 on the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+INT8_OPS_PER_S = 1979e12
+CALIBRATION_FRAMES = 32
+QAT_STEPS = 2
 TRAIN_BATCH = 32
 AUGMENTED_STEPS = 3
 FIXED_BATCH_STEPS = 6
@@ -235,10 +273,10 @@ def grid_sample_warp(images_nchw, inverse):
     return run
 
 
-def profile_busy(fn):
+def profile_busy(fn, top=5):
     """Wall ms of ``fn()`` unprofiled and under torch.profiler, the device's
     busy ms in the profiled run (the sum of device-side events, which counts
-    overlapping kernels twice), launches and the five longest kernels."""
+    overlapping kernels twice), launches and the ``top`` longest kernels."""
     from torch.autograd import DeviceType
 
     def timed():
@@ -258,12 +296,87 @@ def profile_busy(fn):
         return float(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)))
 
     busy_ms = sum(device_us(e) for e in events) / 1e3
-    top = sorted(events, key=device_us, reverse=True)[:5]
+    longest = sorted(events, key=device_us, reverse=True)[:top]
     return {"wall_ms": wall_ms, "wall_ms_profiled": wall_ms_profiled, "device_busy_ms": busy_ms,
             "device_idle_share_profiled": 1 - busy_ms / wall_ms_profiled,
             "device_launches": sum(e.count for e in events),
             "top_kernels": [{"name": e.key[:80], "count": e.count, "ms": device_us(e) / 1e3}
-                            for e in top]}
+                            for e in longest]}
+
+
+def eval_bounds(result, ref):
+    """The measured metrics of an evaluate_frames result and the bounds they
+    miss around a bf16 TPU reference report (empty when they meet them)."""
+    kp, pnp = result["keypoints"], result["pnp"]
+    measured = {
+        "inframe_found": [kp["num_found_gt_inframe"], kp["num_gt_inframe"]],
+        "outframe_found": [kp["num_found_gt_outframe"], kp["num_gt_outframe"]],
+        "pck_auc": kp["l2_error_auc"],
+        "pnp_success": [pnp["num_pnp_found"], pnp["num_pnp_possible"]],
+        "add_auc": pnp["add_auc"],
+        "add_auc_transposed": result["pnp_transposed"]["add_auc"],
+        "l2_error_mean_px": kp["l2_error_mean_px"],
+        "add_mean": pnp["add_mean"],
+    }
+    failures = []
+    if kp["num_gt_inframe"] != ref["inframe_found"][1] or kp["num_gt_outframe"] != ref["outframe_found"][1]:
+        failures.append("the rendered holdout's ground truth differs from the reference run's")
+    if abs(kp["num_found_gt_inframe"] - ref["inframe_found"][0]) > 6:
+        failures.append(f"in-frame found {kp['num_found_gt_inframe']} not within 6 of {ref['inframe_found'][0]}")
+    if kp["num_found_gt_outframe"] != ref["outframe_found"][0]:
+        failures.append(f"out-of-frame found {kp['num_found_gt_outframe']} != {ref['outframe_found'][0]}")
+    if kp["l2_error_auc"] is None or abs(kp["l2_error_auc"] - ref["pck_auc"]) > 0.01:
+        failures.append(f"PCK AUC {kp['l2_error_auc']} not within 0.01 of {ref['pck_auc']}")
+    if pnp["num_pnp_possible"] != ref["pnp_success"][1] or pnp["num_pnp_found"] < 56:
+        failures.append(f"PnP {pnp['num_pnp_found']}/{pnp['num_pnp_possible']} below 56/{ref['pnp_success'][1]}")
+    if not np.isfinite(pnp["add_auc"]) or abs(pnp["add_auc"] - ref["add_auc"]) > 0.03:
+        failures.append(f"ADD AUC {pnp['add_auc']} not within 0.03 of {ref['add_auc']}")
+    return measured, failures
+
+
+def int8_case(gen, b, h, w, ci, co):
+    """Random int8 activations and OHWI weights on the card, with k and b
+    that spread the outputs over the whole int8 range."""
+    x_q = torch.randint(-127, 128, (b, h, w, ci), generator=gen, device="cuda", dtype=torch.int8)
+    w_q = torch.randint(-127, 128, (co, 3, 3, ci), generator=gen, device="cuda", dtype=torch.int8)
+    k = (torch.rand(co, generator=gen, device="cuda") + 0.5) / (80.0 * (9 * ci) ** 0.5)
+    bias = torch.rand(co, generator=gen, device="cuda") * 60.0 - 30.0
+    return x_q, w_q, k, bias
+
+
+def compare_conv_int8(x_q, w_q, k, bias, relu):
+    """int8 conv kernel vs plain on the card; raises unless bit-equal.
+    Returns the kernel's output and the largest difference (0)."""
+    from dream_tpu_torch.ops.conv_int8 import conv3x3_int8_kernel, conv3x3_int8_plain
+
+    out = conv3x3_int8_kernel(x_q, w_q, k, bias, relu)
+    ref = conv3x3_int8_plain(x_q, w_q, k, bias, relu)
+    torch.cuda.synchronize()
+    diff = int((out.to(torch.int32) - ref.to(torch.int32)).abs().max())
+    if diff != 0:
+        raise AssertionError(f"int8 conv kernel differs from plain at {tuple(x_q.shape)} -> "
+                             f"{w_q.shape[0]} relu={relu} on {int((out != ref).sum())} outputs")
+    return out, diff
+
+
+def conv_int8_bound_ms(shapes):
+    """Least time for the chain's int8 convs on an H100: 2*9*Ci*Co operations
+    an output pixel at the dense int8 tensor-core rate, against reading each
+    input and weight once and writing each output once."""
+    ops = sum(2 * 9 * b * h * w * ci * co for b, h, w, ci, co, _ in shapes)
+    bytes_moved = sum(b * h * w * (ci + co) + 9 * ci * co + 8 * co for b, h, w, ci, co, _ in shapes)
+    t_ops = ops / INT8_OPS_PER_S * 1e3
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), ops
+
+
+def im2col_int8(x_q):
+    """NHWC int8 -> [B*H*W, 9*Ci] int8, taps in the order of an OHWI
+    weight's [Co, 9*Ci] rows."""
+    b, h, w, ci = x_q.shape
+    xp = torch.nn.functional.pad(x_q, (0, 0, 1, 1, 1, 1))
+    cols = [xp[:, dy:dy + h, dx:dx + w, :] for dy in range(3) for dx in range(3)]
+    return torch.cat(cols, dim=-1).reshape(b * h * w, 9 * ci)
 
 
 def snapshot(network):
@@ -294,12 +407,15 @@ def main():
     from dream_tpu_torch.data.dataset import make_batch_processor
     from dream_tpu_torch.data.synthetic import generate_synthetic_frames
     from dream_tpu_torch.network import DreamNetwork, create_network_from_config_file
+    from dream_tpu_torch.models.vgg_int8_deploy import chain_shapes, run_int8_chain
     from dream_tpu_torch.ops import cuda_build
+    from dream_tpu_torch.ops.conv_int8 import conv3x3_int8_kernel, conv3x3_int8_plain, conv3x3_int32_plain
     from dream_tpu_torch.ops.score_kernel import score_maps_kernel, score_maps_plain
     from dream_tpu_torch.ops.warp import inverse_affines, warp_batch_kernel, warp_batch_plain
     from dream_tpu_torch.utils.config import load_yaml
 
-    kernels_of_port = {"score_kernel": score_maps_kernel, "warp_kernel": warp_batch_kernel}
+    kernels_of_port = {"score_kernel": score_maps_kernel, "warp_kernel": warp_batch_kernel,
+                       "conv_int8_kernel": conv3x3_int8_kernel}
 
     def reset_counts():
         for kernel in kernels_of_port.values():
@@ -317,7 +433,7 @@ def main():
     progress("card", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
              device=torch.cuda.get_device_name(0))
 
-    # 2. Build both kernels, one nvcc each, in parallel.
+    # 2. Build the kernels, one nvcc each, in parallel.
     t0 = time.perf_counter()
     libs = cuda_build.build_all(list(kernels_of_port), verbose=True)
     build_s = time.perf_counter() - t0
@@ -367,34 +483,11 @@ def main():
     if eval_launches["score_kernel"] <= 0:
         raise AssertionError("the evaluation path did not launch the score kernel")
 
-    kp, pnp = result["keypoints"], result["pnp"]
     ref = reference_metrics(REFERENCE)
-    measured = {
-        "inframe_found": [kp["num_found_gt_inframe"], kp["num_gt_inframe"]],
-        "outframe_found": [kp["num_found_gt_outframe"], kp["num_gt_outframe"]],
-        "pck_auc": kp["l2_error_auc"],
-        "pnp_success": [pnp["num_pnp_found"], pnp["num_pnp_possible"]],
-        "add_auc": pnp["add_auc"],
-        "add_auc_transposed": result["pnp_transposed"]["add_auc"],
-        "l2_error_mean_px": kp["l2_error_mean_px"],
-        "add_mean": pnp["add_mean"],
-    }
+    measured, failures = eval_bounds(result, ref)
     progress("evaluation_path", seconds=round(eval_s, 3), load_s=round(load_s, 3),
              render_s=round(render_s, 3), launches=eval_launches, measured=measured,
              reference={k: list(v) if isinstance(v, tuple) else v for k, v in ref.items()})
-    failures = []
-    if kp["num_gt_inframe"] != ref["inframe_found"][1] or kp["num_gt_outframe"] != ref["outframe_found"][1]:
-        failures.append("the rendered holdout's ground truth differs from the reference run's")
-    if abs(kp["num_found_gt_inframe"] - ref["inframe_found"][0]) > 6:
-        failures.append(f"in-frame found {kp['num_found_gt_inframe']} not within 6 of {ref['inframe_found'][0]}")
-    if kp["num_found_gt_outframe"] != ref["outframe_found"][0]:
-        failures.append(f"out-of-frame found {kp['num_found_gt_outframe']} != {ref['outframe_found'][0]}")
-    if kp["l2_error_auc"] is None or abs(kp["l2_error_auc"] - ref["pck_auc"]) > 0.01:
-        failures.append(f"PCK AUC {kp['l2_error_auc']} not within 0.01 of {ref['pck_auc']}")
-    if pnp["num_pnp_possible"] != ref["pnp_success"][1] or pnp["num_pnp_found"] < 56:
-        failures.append(f"PnP {pnp['num_pnp_found']}/{pnp['num_pnp_possible']} below 56/{ref['pnp_success'][1]}")
-    if not np.isfinite(pnp["add_auc"]) or abs(pnp["add_auc"] - ref["add_auc"]) > 0.03:
-        failures.append(f"ADD AUC {pnp['add_auc']} not within 0.03 of {ref['add_auc']}")
     if failures:
         raise AssertionError("evaluation path misses its bounds: " + "; ".join(failures))
 
@@ -538,6 +631,130 @@ def main():
     }
     progress("timings", **timings)
 
+    # 8. int8 conv kernel vs plain on the card, bit for bit.
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    conv_cases = {}
+    for b, h, w, ci, co, relu in chain_shapes(2):
+        for r in sorted({relu, False}, reverse=True):
+            conv_cases[f"{b}x{h}x{w}x{ci}->{co} relu={r}"] = compare_conv_int8(
+                *int8_case(gen, b, h, w, ci, co), r)[1]
+    for b, h, w, ci, co, relu in [(1, 25, 50, 64, 64, True), (3, 7, 9, 32, 8, False),
+                                  (2, 33, 17, 96, 200, True), (1, 1, 1, 32, 8, False)]:
+        conv_cases[f"{b}x{h}x{w}x{ci}->{co} relu={relu}"] = compare_conv_int8(
+            *int8_case(gen, b, h, w, ci, co), relu)[1]
+    x_q, w1, k1, b1 = int8_case(gen, 2, 50, 50, 256, 512)
+    _, w2, k2, b2 = int8_case(gen, 2, 50, 50, 512, 256)
+    mid = compare_conv_int8(x_q, w1, k1, b1, True)[0]
+    out = compare_conv_int8(mid, w2, k2, b2, False)[0]
+    want = conv3x3_int8_plain(conv3x3_int8_plain(x_q, w1, k1, b1), w2, k2, b2, False)
+    chain_diff = int((out.to(torch.int32) - want.to(torch.int32)).abs().max())
+    if chain_diff != 0:
+        raise AssertionError("the two-link int8 chain differs from two plain convs")
+    conv_cases["two-link chain 2x50x50x256->512->256"] = chain_diff
+    progress("conv_int8_kernel_vs_plain", max_abs_err=conv_cases)
+
+    # 9. The int8 evaluation path on the phase-5 holdout.
+    def evaluate(net, name, calibration_frames):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = evaluate_frames(net, holdout["images"], gt, holdout["camera_K"], batch_size=16,
+                              int8_calibration_frames=calibration_frames)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: v.launches for k, v in kernels_of_port.items()}
+        ref = reference_metrics(os.path.join(ROOT, INT8_REFERENCES[name]))
+        measured, failures = eval_bounds(res, ref)
+        progress("int8_evaluation", run=name, seconds=round(seconds, 3), launches=launches,
+                 measured=measured,
+                 reference={k: list(v) if isinstance(v, tuple) else v for k, v in ref.items()})
+        n_batches = -(-len(holdout["images"]) // 16)
+        if calibration_frames and launches["conv_int8_kernel"] != 19 * n_batches:
+            failures.append(f"the conv kernel launched {launches['conv_int8_kernel']} times, "
+                            f"not 19 for each of {n_batches} batches")
+        if not calibration_frames and launches["conv_int8_kernel"] != 0:
+            failures.append("the float evaluation launched the int8 conv kernel")
+        if launches["score_kernel"] <= 0:
+            failures.append("the evaluation did not launch the score kernel")
+        if failures:
+            raise AssertionError(f"{name} evaluation misses its bounds: " + "; ".join(failures))
+        return launches
+
+    r4 = create_network_from_config_file(R4_CONFIG, R4_CHECKPOINT, device="cuda")
+    evaluate(r4, "float_r4", 0)
+    int8_launches = evaluate(r4, "ptq_r4", CALIBRATION_FRAMES)
+    x16 = r4.preprocess(torch.from_numpy(holdout["images"][:16]))
+    with torch.no_grad():
+        float_maps = r4.model(x16.permute(0, 3, 1, 2))
+    int8_maps = r4.inference(x16)[0]
+    corr = float(np.corrcoef(int8_maps.double().cpu().numpy().ravel(),
+                             float_maps.double().cpu().numpy().ravel())[0, 1])
+    if not corr >= 0.99:
+        raise AssertionError(f"PTQ belief maps correlate with the float maps at {corr} (< 0.99)")
+    progress("int8_fidelity", belief_map_correlation=corr)
+    qat = create_network_from_config_file(QAT_CONFIG, QAT_CHECKPOINT, device="cuda")
+    if qat.quant_mode != "qat":
+        raise AssertionError("the QAT sidecar did not build a QAT network")
+    evaluate(qat, "ptq_qat", CALIBRATION_FRAMES)
+
+    # 10. QAT training steps from the QAT checkpoint.
+    qat.enable_fused_training(augmenting)
+    reset_counts()
+    qat_generator = torch.Generator(device="cuda").manual_seed(10)
+    qat_losses = [float(qat.train_raw(qat_generator, raw, kp_raw)) for _ in range(QAT_STEPS)]
+    qat_launches = {k: v.launches for k, v in kernels_of_port.items()}
+    if not all(np.isfinite(qat_losses)):
+        raise AssertionError(f"non-finite QAT loss: {qat_losses}")
+    if qat_launches["warp_kernel"] != QAT_STEPS:
+        raise AssertionError(f"the warp kernel launched {qat_launches['warp_kernel']} times "
+                             f"in {QAT_STEPS} QAT steps")
+    progress("qat_training", losses=qat_losses, launches=qat_launches)
+
+    # 11. The kernel at the main path's shapes (B=16), bit for bit, and
+    # int8 timings there.
+    shapes16 = chain_shapes(16)
+    link_ms, link_plain_ms, link_library_ms = [], [], []
+    library_note = "torch._int_mm on [B*H*W, 9*Ci] x [9*Ci, Co]; im2col built beforehand, not timed"
+    for b, h, w, ci, co, relu in shapes16:
+        x_q, w_q, k, bias = int8_case(gen, b, h, w, ci, co)
+        conv_cases[f"{b}x{h}x{w}x{ci}->{co} relu={relu}"] = compare_conv_int8(x_q, w_q, k, bias, relu)[1]
+        link_ms.append(min(cuda_ms(lambda: conv3x3_int8_kernel(x_q, w_q, k, bias, relu), 10)
+                           for _ in range(2)))
+        link_plain_ms.append(cuda_ms(lambda: conv3x3_int8_plain(x_q, w_q, k, bias, relu), 2, warmup=1))
+        # The yardstick, which the port never calls: one int8 GEMM.
+        cols = im2col_int8(x_q)
+        w_kn = w_q.reshape(co, 9 * ci).t()  # column-major [9*Ci, Co]
+        if not torch.equal(torch._int_mm(cols, w_kn), conv3x3_int32_plain(x_q, w_q).reshape(-1, co)):
+            raise AssertionError(f"torch._int_mm differs from the exact accumulator at {b}x{h}x{w}x{ci}->{co}")
+        link_library_ms.append(cuda_ms(lambda: torch._int_mm(cols, w_kn), 10))
+        del cols
+    progress("conv_int8_kernel_vs_plain_b16", max_abs_err={k: v for k, v in conv_cases.items()
+                                                           if k.startswith("16x")})
+    conv_bound, conv_bound_by, chain_ops = conv_int8_bound_ms(shapes16)
+    chain_ms, chain_plain_ms, chain_library_ms = sum(link_ms), sum(link_plain_ms), sum(link_library_ms)
+    with torch.no_grad():
+        int8_forward_ms = [cuda_ms(lambda: run_int8_chain(r4.int8_chain, x16), 5, warmup=2)
+                           for _ in range(2)]
+        float_forward_ms = [cuda_ms(lambda: r4.model(x16.permute(0, 3, 1, 2)), 5, warmup=2)
+                            for _ in range(2)]
+        int8_forward_profile = profile_busy(lambda: run_int8_chain(r4.int8_chain, x16), top=8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    evaluate_frames(r4, holdout["images"], gt, holdout["camera_K"], batch_size=16)
+    torch.cuda.synchronize()
+    int8_loop_s = time.perf_counter() - t0
+    progress("int8_timings", link_ms=link_ms, link_plain_ms=link_plain_ms,
+             link_library_ms=link_library_ms, library=library_note,
+             chain_ms=chain_ms, chain_plain_ms=chain_plain_ms, chain_library_ms=chain_library_ms,
+             chain_bound_ms=conv_bound, chain_bound_by=conv_bound_by, chain_gop=chain_ops / 1e9,
+             chain_tops=chain_ops / chain_ms / 1e9,
+             link_shapes=[list(shape) for shape in shapes16],
+             link_tops=[2 * 9 * b * h * w * ci * co / ms / 1e9
+                        for (b, h, w, ci, co, _), ms in zip(shapes16, link_ms)],
+             int8_forward_b16_ms=int8_forward_ms, float_forward_b16_ms=float_forward_ms,
+             int8_forward_b16_profile=int8_forward_profile,
+             int8_eval_loop_s=int8_loop_s, int8_eval_loop_frames_per_s=64 / int8_loop_s)
+
     kernels = [{
         "name": "score_kernel",
         "route": "cuda",
@@ -562,6 +779,18 @@ def main():
         "bound_ms": warp_bound,
         "bound_by": warp_bound_by,
         "library_ms": min(grid_ms),
+    }, {
+        "name": "conv_int8_kernel",
+        "route": "cuda",
+        "source": "dream_tpu_torch/csrc/conv_int8_kernel.cu",
+        "replaces": "dream_tpu/ops/pallas_conv.py:98",
+        "launches": int8_launches["conv_int8_kernel"],
+        "max_abs_err": max(conv_cases.values()),
+        "ms": chain_ms,
+        "plain_ms": chain_plain_ms,
+        "bound_ms": conv_bound,
+        "bound_by": conv_bound_by,
+        "library_ms": chain_library_ms,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,10 +10,11 @@ Port of ``dream_tpu/analysis.py``: :func:`keypoint_metrics` (``:93``) and
   in-frame GT keypoints.
 
 :func:`evaluate_frames` does what ``analyze_ndds_dataset`` (``:260-600``)
-does on its plain-PnP path, over frames already in memory: batched
-inference on the device, the net-output -> raw coordinate map, batched PnP
-over all frames, and ADD under both rotation conventions.  The report text
-and the CSV writers are not ported yet.
+does on its plain-PnP path, over frames already in memory: optional int8
+calibration on the first frames, batched inference on the device, the
+net-output -> raw coordinate map, batched PnP over all frames, and ADD
+under both rotation conventions.  The report text and the CSV writers are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from dream_tpu_torch.data.dataset import collect_calibration_batches, make_batch_processor
 from dream_tpu_torch.ops import coords as coord_ops
 from dream_tpu_torch.ops import geometric_vision as gv
 
@@ -102,7 +104,8 @@ def pnp_metrics(pnp_add, num_inframe_projs_gt, num_min_inframe_projs_gt_for_pnp:
 
 
 def evaluate_frames(network, frames: np.ndarray, gt: Mapping[str, np.ndarray],
-                    camera_K: np.ndarray, batch_size: int = 16) -> Dict[str, Any]:
+                    camera_K: np.ndarray, batch_size: int = 16,
+                    int8_calibration_frames: int = 0) -> Dict[str, Any]:
     """Keypoint and plain-PnP evaluation of in-memory frames.
 
     Args:
@@ -112,6 +115,10 @@ def evaluate_frames(network, frames: np.ndarray, gt: Mapping[str, np.ndarray],
         "positions": [F, n_kp, 3] camera-frame keypoints (m)}``.
       camera_K: ``[3, 3]`` intrinsics.
       batch_size: frames per inference batch.
+      int8_calibration_frames: when positive, first calibrate the network's
+        int8 inference (``enable_int8_inference``) on this many frames from
+        the head of ``frames``, in batches of ``batch_size``, as
+        ``analyze_ndds_dataset`` does.
 
     Returns a dict with ``keypoints`` (:func:`keypoint_metrics`), ``pnp`` and
     ``pnp_transposed`` (:func:`pnp_metrics` under the standard and the
@@ -129,6 +136,14 @@ def evaluate_frames(network, frames: np.ndarray, gt: Mapping[str, np.ndarray],
         coord_ops.affine_netin_from_netout(netout_res, netin_res)
     )
     device = network.device
+
+    if int8_calibration_frames:
+        process = make_batch_processor(raw_res, netin_res, netout_res, preprocessing,
+                                       network.image_normalization, include_belief_maps=False)
+        network.enable_int8_inference(collect_calibration_batches(
+            frames, lambda g, images, kp: process(g, images.to(device), kp.to(device)),
+            int8_calibration_frames, batch_size,
+        ))
 
     detected = []
     for start in range(0, n_frames, batch_size):

@@ -14,6 +14,11 @@ so a 44 MB checkpoint decodes in milliseconds.
 ``bias``, and float16 storage is widened to float32, as
 ``DreamNetwork.load_network_params`` widens it on the JAX side.
 
+:func:`quant_from_flax` and :func:`quant_to_flax` carry the calibration
+state across in the same way: the flax ``quant`` collection
+(``{block: {conv: {"act_amax": scalar}}}``) against the port's dict of
+amax by module path (``{"down2.conv0": 0-d f32 tensor}``).
+
 The write side is the inverse: :func:`params_to_flax` maps a state dict
 back onto the flax tree, and :func:`msgpack_serialize` encodes it in the
 bytes ``flax.serialization.to_bytes`` writes for a tree that has been
@@ -222,6 +227,37 @@ def params_to_flax(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         else:
             raise ValueError(f"torch leaf {name} {tuple(arr.shape)} has no flax counterpart")
     return {"params": params}
+
+
+def quant_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Map a flax ``quant`` collection (or a variables tree holding one)
+    onto the port's ``{"block.conv": 0-d f32 tensor}`` amax dict."""
+    quant = tree["quant"] if "quant" in tree else tree
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(node: Dict[str, Any], prefix: str):
+        for name, leaf in node.items():
+            if isinstance(leaf, dict):
+                walk(leaf, f"{prefix}{name}.")
+            elif name == "act_amax" and np.ndim(leaf) == 0:
+                out[prefix[:-1]] = torch.tensor(np.float32(leaf))
+            else:
+                raise ValueError(f"flax quant leaf {prefix}{name} has no torch counterpart")
+
+    walk(quant, "")
+    return out
+
+
+def quant_to_flax(qvars: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of :func:`quant_from_flax`: the ``quant`` collection with
+    each amax a 0-d float32 numpy array."""
+    quant: Dict[str, Any] = {}
+    for name, amax in qvars.items():
+        node = quant
+        for part in name.split("."):
+            node = node.setdefault(part, {})
+        node["act_amax"] = np.asarray(amax.detach().to("cpu", torch.float32).numpy())
+    return quant
 
 
 def _pack_header(out: bytearray, n: int, fix_base: Optional[int], fix_max: int, codes) -> None:

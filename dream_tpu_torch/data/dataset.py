@@ -1,13 +1,16 @@
 """The device-side batch transform of training: raw frames -> a training batch.
 
-Port of ``dream_tpu/data/dataset.py:295-347`` (``make_batch_processor``).
-The NDDS-on-disk reader and the loaders of that module are not ported yet.
+Port of ``dream_tpu/data/dataset.py:295-347`` (``make_batch_processor``)
+and of ``:528-562`` (``collect_calibration_batches``) over frames in
+memory.  The NDDS-on-disk reader and the loaders of that module are not
+ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from dream_tpu_torch.data.augment import DEFAULT_AUGMENT, AugmentConfig, augment_batch
@@ -72,3 +75,29 @@ def make_batch_processor(
         return out
 
     return process
+
+
+def collect_calibration_batches(frames: np.ndarray, process: Callable[..., Dict[str, torch.Tensor]],
+                                n_frames: int, batch_size: int = 16) -> List[torch.Tensor]:
+    """Net-input batches of at least ``n_frames`` frames for int8 calibration.
+
+    ``frames`` is uint8 ``[F, H, W, 3]``; batches of ``batch_size`` are taken
+    from its head in order, the last one kept even when short, and run
+    through ``process`` (a non-augmenting :func:`make_batch_processor`
+    closure, fed placeholder key points) until ``n_frames`` are reached.
+    Returns the ``image_rgb_input`` batches.
+    """
+    if batch_size <= 0:
+        raise ValueError("batch_size must be positive")
+    batches: List[torch.Tensor] = []
+    n = 0
+    for start in range(0, len(frames), batch_size):
+        images = torch.as_tensor(np.asarray(frames[start : start + batch_size], dtype=np.uint8))
+        kp_raw = torch.zeros((images.shape[0], 1, 2), dtype=torch.float32)
+        batches.append(process(None, images, kp_raw)["image_rgb_input"])
+        n += images.shape[0]
+        if n >= n_frames:
+            break
+    if not batches:
+        raise ValueError("calibration frames are empty")
+    return batches

@@ -6,9 +6,13 @@ weights with their YAML sidecar, run ``image -> (belief_maps, keypoints)``
 on one device, and train: the belief-map criteria (``:70-118``), the
 optimizer with its schedule and global-norm clipping (``:394-435``), the
 train steps (``:437``, ``:534-580``, ``:659-687``), the EMA (``:512-532``)
-and the evaluation loss (``:689``).  The model computes in float32 (a
-config's ``compute_dtype`` bfloat16 is not ported yet).  Peak decoding
-runs in the CUDA score kernel and the augmentation's warp in the CUDA warp
+and the evaluation loss (``:689``); quantization-aware training
+(``quant_mode: qat``, ``:190-200``) and int8 inference of vgg-Q
+(``enable_int8_inference``, ``:796-969``).  The model computes in float32:
+a config's ``compute_dtype`` bfloat16 is not ported yet, so such a config
+warns, ``compute_dtype`` says float32, and a saved sidecar says so too.
+Peak decoding runs in the CUDA score kernel, the augmentation's warp in
+the CUDA warp kernel and the int8 chain's convs in the CUDA int8 conv
 kernel for CUDA tensors, and in their plain torch versions for CPU
 tensors, chosen by the tensor's device.
 
@@ -18,8 +22,10 @@ the CPU; without CUDA they raise instead of falling back.
 
 from __future__ import annotations
 
+import copy
 import math
 import os
+import warnings
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -32,6 +38,8 @@ from dream_tpu_torch.checkpoint import (
     save_flax_checkpoint,
 )
 from dream_tpu_torch.models import DreamHourglass
+from dream_tpu_torch.models import quant as quant_ops
+from dream_tpu_torch.models import vgg_int8_deploy
 from dream_tpu_torch.ops import belief_maps as bm_ops
 from dream_tpu_torch.ops import coords as coord_ops
 from dream_tpu_torch.ops import image_proc as image_proc_ops
@@ -39,6 +47,11 @@ from dream_tpu_torch.utils import resolutions as res_utils
 from dream_tpu_torch.utils.config import load_yaml, save_yaml
 
 KNOWN_OPTIMIZERS = ["adam", "sgd"]  # reference dream/network.py:23-26
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """``torch.float32`` -> ``"float32"``, as configs name dtypes."""
+    return str(dtype).removeprefix("torch.")
 
 
 def resolve_device(device: Any) -> torch.device:
@@ -164,8 +177,22 @@ class DreamNetwork:
                 f"got type={self.architecture_type} output_heads={arch['output_heads']} "
                 f"options={unported}"
             )
-        if arch.get("quant_mode"):
-            raise NotImplementedError("quantized (QAT/int8) inference is not ported yet")
+        # QAT fake-quantizes the training graph; calibrate/int8 are driven by
+        # enable_int8_inference (dream_tpu/network.py:190-200).
+        self.quant_mode = arch.get("quant_mode")
+        if self.quant_mode not in (None, "qat"):
+            raise NotImplementedError(
+                f'architecture "quant_mode" must be null or "qat", got {self.quant_mode!r}'
+            )
+        # The dtype the model runs in: float32 (bf16 compute is not ported).
+        self.compute_dtype = torch.float32
+        requested = arch.get("compute_dtype", "float32")
+        if requested != dtype_name(self.compute_dtype):
+            warnings.warn(
+                f'the config asks for compute_dtype "{requested}"; the port computes in '
+                f'"{dtype_name(self.compute_dtype)}"',
+                stacklevel=2,
+            )
 
         # Multi-peak disambiguation knobs (reference dream/network.py:187-191).
         self.use_belief_peak_scores = True
@@ -173,7 +200,8 @@ class DreamNetwork:
 
         self._seed = seed
         self.model = DreamHourglass(
-            self.n_keypoints, generator=torch.Generator().manual_seed(seed)
+            self.n_keypoints, generator=torch.Generator().manual_seed(seed),
+            quant_mode=self.quant_mode,
         ).to(self.device).eval()
         self.criterion = criterion_from_config(arch["loss"])
         self.optimizer: Optional[torch.optim.Optimizer] = None
@@ -182,6 +210,7 @@ class DreamNetwork:
         self._batch_processor: Optional[Callable] = None
         self.ema_decay: Optional[float] = None
         self.ema_params: Optional[Dict[str, torch.Tensor]] = None
+        self.int8_chain: Optional[vgg_int8_deploy.Int8Chain] = None
 
         cfg = network_config["training"]["config"]
         out_res = list(self.net_output_resolution_from_input_resolution(
@@ -237,7 +266,10 @@ class DreamNetwork:
         self.model.load_state_dict(state, strict=True)
 
     def save_network_config(self, config_file_path: str, overwrite: bool = False) -> None:
-        save_yaml(self.network_config, config_file_path, overwrite=overwrite)
+        """Write the config, with ``compute_dtype`` the dtype that ran."""
+        config = copy.deepcopy(self.network_config)
+        config["architecture"]["compute_dtype"] = dtype_name(self.compute_dtype)
+        save_yaml(config, config_file_path, overwrite=overwrite)
 
     def save_network_params(self, network_params_path: str, overwrite: bool = False) -> None:
         """Write the parameters as ``dream_tpu``'s ``save_network_params``
@@ -372,15 +404,44 @@ class DreamNetwork:
         self.model.eval()
         return self._forward_loss(network_input_heads[0], target, variables)
 
+    # --- int8 inference (reference dream/network.py:796-969) ---
+
+    def enable_int8_inference(self, calibration_net_inputs: Sequence[torch.Tensor]
+                              ) -> Dict[str, torch.Tensor]:
+        """Post-training int8 quantization of vgg-Q's conv stack.
+
+        Calibrates the activation amax of every quantizable conv over
+        ``calibration_net_inputs`` (normalized NHWC ``[B, H, W, 3]``
+        batches) with the float model, as the JAX package's ``calibrate``
+        pass does, then quantizes the current parameters and points
+        :meth:`inference` at the int8 chain
+        (:mod:`dream_tpu_torch.models.vgg_int8_deploy`), whose 19 chained
+        convs run in the CUDA int8 conv kernel on the card.  The chain is a
+        snapshot: later training does not change it.  Training and
+        checkpoints stay float.  Returns the amax by module path.
+        """
+        if not vgg_int8_deploy.supports(self.model):
+            raise NotImplementedError("int8 inference is ported for vgg-Q only")
+        batches = (torch.as_tensor(b).to(self.device, torch.float32).permute(0, 3, 1, 2)
+                   for b in calibration_net_inputs)
+        qvars = quant_ops.calibrate(self.model, batches)
+        self.int8_chain = vgg_int8_deploy.quantize_chain(self.model.state_dict(), qvars)
+        return qvars
+
     # --- inference (reference dream/network.py:503-590) ---
 
     @torch.no_grad()
     def inference(self, network_input: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """``[B, h, w, 3]`` float net input (channels-last, as the JAX package)
         -> ``(belief_maps [B, n_kp, h/4, w/4], keypoints [B, n_kp, 2])`` in
-        the net-output frame; the sentinel marks no detection."""
-        x = network_input.to(self.device, torch.float32).permute(0, 3, 1, 2)
-        belief = self.model(x)
+        the net-output frame; the sentinel marks no detection.  Runs the int8
+        chain once :meth:`enable_int8_inference` has been called."""
+        if self.int8_chain is not None:
+            belief = vgg_int8_deploy.run_int8_chain(
+                self.int8_chain, network_input.to(self.device, torch.float32), self.compute_dtype
+            ).permute(0, 3, 1, 2).contiguous()
+        else:
+            belief = self.model(network_input.to(self.device, torch.float32).permute(0, 3, 1, 2))
         keypoints, _ = bm_ops.keypoints_from_belief_maps(
             belief,
             self.peak_offset_due_to_upsampling(),

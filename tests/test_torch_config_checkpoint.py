@@ -184,6 +184,32 @@ def test_params_from_flax_rejects_unknown_leaves():
         checkpoint.params_from_flax({"params": {"bn": {"scale": np.ones(3, np.float32)}}})
 
 
+def test_compute_dtype_is_the_one_that_runs(tmp_path):
+    """A bfloat16 sidecar warns once naming both dtypes; the network says,
+    and a saved sidecar writes, the float32 that runs."""
+    import warnings
+
+    from dream_tpu_torch.network import DreamNetwork
+
+    cfg = load_yaml(os.path.join(ROOT, "trained_models/results_r5/vggq/dream_vgg_q_r5.yaml"))
+    assert cfg["architecture"]["compute_dtype"] == "bfloat16"
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        net = DreamNetwork(cfg, device="cpu")
+    messages = [str(w.message) for w in caught if "compute_dtype" in str(w.message)]
+    assert len(messages) == 1 and "bfloat16" in messages[0] and "float32" in messages[0]
+    assert net.compute_dtype == torch.float32
+    assert net.network_config["architecture"]["compute_dtype"] == "bfloat16"  # the input is kept
+    path = str(tmp_path / "net.yaml")
+    net.save_network_config(path)
+    saved = load_yaml(path)
+    assert saved["architecture"]["compute_dtype"] == "float32"
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        DreamNetwork(saved, device="cpu")
+    assert not [w for w in caught if "compute_dtype" in str(w.message)]
+
+
 FORBIDDEN_IMPORTS = {
     "jax", "jaxlib", "flax", "optax", "dream_tpu", "yaml", "msgpack", "PIL", "cv2", "torchvision",
 }

@@ -1,4 +1,5 @@
-"""The CUDA kernels (score, warp) against their plain torch versions, on the card.
+"""The CUDA kernels (score, warp, int8 conv) against their plain torch
+versions, on the card.
 
 Needs an NVIDIA GPU with nvcc (marker ``cuda``); skips elsewhere.  This file
 imports neither jax nor dream_tpu, so it also runs where only torch is
@@ -12,7 +13,8 @@ import pytest
 import torch
 
 from dream_tpu_torch.data.augment import DEFAULT_AUGMENT, affine_matrices, sample_augment_params
-from dream_tpu_torch.ops import score_kernel, warp
+from dream_tpu_torch.models.vgg_int8_deploy import CHAIN, PRE, chain_shapes
+from dream_tpu_torch.ops import conv_int8, score_kernel, warp
 from dream_tpu_torch.ops.belief_maps import create_belief_maps, peaks_from_belief_maps
 
 
@@ -122,3 +124,101 @@ def test_warp_kernel_rejects_bad_inputs(cuda):
         warp.warp_batch_kernel(torch.zeros(3, 8, 8, 3, device=cuda), affines)
     with pytest.raises(ValueError):
         warp.warp_batch_kernel(torch.zeros(2, 8, 8, 3), affines.cpu())
+
+
+# (B, H, W, Ci, Co, relu) of the 19 links of vgg-Q's int8 chain at a
+# 400x400 input, one frame.
+CHAIN_SHAPES = chain_shapes(1)
+
+
+def _int8_case(rng, b, h, w, ci, co, device):
+    x_q = torch.from_numpy(rng.randint(-127, 128, (b, h, w, ci)).astype(np.int8)).to(device)
+    w_q = torch.from_numpy(rng.randint(-127, 128, (co, 3, 3, ci)).astype(np.int8)).to(device)  # OHWI
+    # A scale that spreads the outputs over the whole int8 range, both signs.
+    # (a uniform int8 product has a standard deviation of ~5,400).
+    k = torch.from_numpy((rng.uniform(0.5, 1.5, co) / (np.sqrt(9 * ci) * 80.0)).astype(np.float32))
+    bias = torch.from_numpy(rng.uniform(-30, 30, co).astype(np.float32))
+    return x_q, w_q, k.to(device), bias.to(device)
+
+
+def test_chain_shapes_follow_the_chain():
+    assert len(CHAIN_SHAPES) == len(CHAIN) == 19
+    assert [relu for *_, relu in CHAIN_SHAPES] == [relu for *_, relu in CHAIN]
+    # down1 leaves 64 channels at 200x200; each link reads what the one
+    # before it wrote, pooled or upsampled where PRE says so.
+    _, h, _, ci, _, _ = CHAIN_SHAPES[0]
+    assert (h, ci) == (200, 64)
+    for (block, conv, _), (b, h_in, w_in, ci, _, _), (_, h, _, _, co, _) in zip(
+            CHAIN[1:], CHAIN_SHAPES[1:], CHAIN_SHAPES):
+        h = {"pool": h // 2, "up": h * 2}.get(PRE.get((block, conv)), h)
+        assert (b, h_in, w_in, ci) == (1, h, h, co)
+    assert CHAIN_SHAPES[-1][1:5] == (100, 100, 64, 64)
+    # 129.0 GOP a frame.
+    assert sum(2 * 9 * h * w * ci * co for _, h, w, ci, co, _ in CHAIN_SHAPES) == 129_024_000_000
+
+
+def _check_conv(cuda, rng, b, h, w, ci, co, relu):
+    x_q, w_q, k, bias = _int8_case(rng, b, h, w, ci, co, cuda)
+    before = conv_int8.conv3x3_int8_kernel.launches
+    out = conv_int8.conv3x3_int8_kernel(x_q, w_q, k, bias, relu)
+    ref = conv_int8.conv3x3_int8_plain(x_q, w_q, k, bias, relu)
+    torch.cuda.synchronize()
+    assert conv_int8.conv3x3_int8_kernel.launches == before + 1
+    assert out.dtype == torch.int8 and out.shape == (b, h, w, co)
+    assert torch.equal(out, ref), int((out != ref).sum())
+    return ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("index", range(19))
+def test_conv_int8_kernel_matches_plain_at_the_chain_shapes(cuda, index):
+    relu = CHAIN_SHAPES[index][-1]
+    ref = _check_conv(cuda, np.random.RandomState(index), *CHAIN_SHAPES[index])
+    # The data reach both clamps.
+    assert int((ref == 127).sum()) > 0 and int((ref == (0 if relu else -127)).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,relu", [
+    ((1, 25, 50, 64, 64), True), ((2, 16, 24, 32, 64), False), ((1, 8, 8, 64, 64), True),
+    ((3, 7, 9, 32, 8), False), ((2, 1, 1, 96, 40), True), ((1, 33, 17, 32, 200), False),
+])
+def test_conv_int8_kernel_matches_plain_at_odd_shapes(cuda, shape, relu):
+    _check_conv(cuda, np.random.RandomState(sum(shape)), *shape, relu)
+
+
+@pytest.mark.cuda
+def test_conv_int8_dispatch_and_two_link_chain(cuda):
+    rng = np.random.RandomState(3)
+    x_q, w1, k1, b1 = _int8_case(rng, 1, 16, 16, 32, 64, cuda)
+    _, w2, k2, b2 = _int8_case(rng, 1, 16, 16, 64, 32, cuda)
+    h1, h2 = (w.permute(1, 2, 3, 0) for w in (w1, w2))  # the public HWIO layout
+    before = conv_int8.conv3x3_int8_kernel.launches
+    got = conv_int8.conv3x3_int8(conv_int8.conv3x3_int8(x_q, h1, k1, b1), h2, k2, b2)
+    got_ohwi = conv_int8.conv3x3_int8_ohwi(conv_int8.conv3x3_int8_ohwi(x_q, w1, k1, b1), w2, k2, b2)
+    assert conv_int8.conv3x3_int8_kernel.launches == before + 4
+    cpu = [t.cpu() for t in (x_q, h1, k1, b1, h2, k2, b2)]
+    mid = conv_int8.conv3x3_int8(*cpu[:4])
+    want = conv_int8.conv3x3_int8(mid, *cpu[4:])
+    assert conv_int8.conv3x3_int8_kernel.launches == before + 4  # CPU tensors: the plain version
+    assert torch.equal(got.cpu(), want) and torch.equal(got_ohwi.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_conv_int8_kernel_rejects_bad_inputs(cuda):
+    x_q, w_q, k, bias = _int8_case(np.random.RandomState(4), 1, 8, 8, 32, 64, cuda)
+    kernel = conv_int8.conv3x3_int8_kernel
+    with pytest.raises(ValueError):  # wrong dtype
+        kernel(x_q.to(torch.int32), w_q, k, bias)
+    with pytest.raises(ValueError):
+        kernel(x_q, w_q, k.double(), bias)
+    with pytest.raises(ValueError):  # not contiguous
+        kernel(x_q.transpose(1, 2), w_q, k, bias)
+    with pytest.raises(ValueError):  # CPU and CUDA mixed
+        kernel(x_q, w_q.cpu(), k, bias)
+    with pytest.raises(ValueError):  # CPU tensors
+        kernel(*(t.cpu() for t in (x_q, w_q, k, bias)))
+    with pytest.raises(ValueError):  # Ci not a multiple of 32
+        kernel(x_q[..., :16].contiguous(), w_q[..., :16].contiguous(), k, bias)
+    with pytest.raises(ValueError):  # mismatched channels
+        kernel(x_q, w_q[..., :16].contiguous(), k, bias)

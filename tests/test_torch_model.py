@@ -99,7 +99,7 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
 @pytest.mark.parametrize(
     "override",
     [{"spatial_softmax": {"learned_beta": True, "initial_beta": 1.0}}, {"deconv_decoder": True},
-     {"quant_mode": "qat"}],
+     {"quant_mode": "int8"}],
 )
 def test_unported_architectures_are_refused(override):
     cfg = load_yaml(CONFIG)
