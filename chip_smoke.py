@@ -8,9 +8,9 @@ Run from the repository root with no arguments:
 Phases, each ending with one JSON progress line on stdout:
 
 1. the card's name and power limit, as nvidia-smi reports them;
-2. build both CUDA kernels (dream_tpu_torch/csrc/score_kernel.cu and
-   warp_kernel.cu) with nvcc for sm_90a, one nvcc each, started together;
-   the build time and ptxas's registers and spills;
+2. build the three CUDA kernels (dream_tpu_torch/csrc/score_kernel.cu,
+   warp_kernel.cu and conv_int8_kernel.cu) with nvcc for sm_90a, one nvcc
+   each, started together; the build time and ptxas's registers and spills;
 3. hold the score kernel against its plain torch version on the card: f32
    belief maps (Gaussian blobs plus noise) at 100x100 (N=448), at the vgg-Q
    batch shape (N=112), at 400x400 (N=14) and at an odd 37x53; peak counts
@@ -39,8 +39,9 @@ Phases, each ending with one JSON progress line on stdout:
    belief maps;
 7. timings with CUDA events after warm-up: the score kernel and its plain
    version at the vgg-Q shape, the model forward at B=16 and frames/s of the
-   evaluation loop; the warp kernel (with and without its inverse), its
-   plain version and F.grid_sample at [32, 400, 400, 3]; the train step at
+   evaluation loop; the warp kernel on a given inverse (what F.grid_sample
+   is given too), the wrapper with its inverse, the plain version and
+   F.grid_sample at [32, 400, 400, 3]; the train step at
    B=32, split into the batch processor, forward, forward+backward and
    forward+backward+optimizer; peak device memory of training; and one
    step under torch.profiler: the device's busy share and longest kernels.
@@ -49,7 +50,8 @@ Phases, each ending with one JSON progress line on stdout:
    against its plain torch version on the card, bit for bit: the 19 links
    of vgg-Q's int8 chain at B=2, each also without its ReLU where it has
    one, a two-link chain, and odd shapes ([1, 25, 50, 64] -> 64, H and W
-   that are not multiples of the 8x16 tile, Co not a multiple of 64)
+   that are not multiples of the 5x25 tile, Co that ends inside a 64- or
+   128-channel tile, a partial third channel tile)
    (phase 11 adds the 19 links at B=16, the main path's batch);
 9. the int8 evaluation path on the phase-5 holdout, against three bf16 TPU
    reports with phase 5's bounds: the float r4 vgg-Q
@@ -68,10 +70,14 @@ Phases, each ending with one JSON progress line on stdout:
    im2col built beforehand, outside the timing), per link and summed over
    the chain; the int8 forward against the float forward at B=16, and its
    longest kernels under torch.profiler; frames/s of the int8 evaluation
-   loop.
+   loop; then a line with the conv kernel's limits at each link: its tile
+   plan, ring stages, tiles and blocks launched, registers, spills and
+   shared memory, and the share of the link's bound it reaches, and the
+   chain's TOP/s per map size (25, 50, 100, 200).
 
-Then a line listing the kernels with their measurements, and as the last
-line {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
+Then a line listing the kernels with their measurements (each row's ms and
+library_ms time the same work), and as the last line
+{"ok": true, "device": {...}}.  Any failure raises and exits non-zero
 before that line.  Without CUDA the script exits non-zero at once.
 """
 
@@ -581,8 +587,10 @@ def main():
     nchw = images.permute(0, 3, 1, 2).contiguous()
     grid_sample = grid_sample_warp(nchw, inverse)
     grid_diff = float((grid_sample().permute(0, 2, 3, 1) - warp_batch_kernel(images, affines)).abs().max())
+    # The kernel on a given inverse is what F.grid_sample is timed on (and
+    # what the TPU kernel is handed); the wrapper adds the batched inverse.
     warp_ms, warp_launch_ms, warp_plain_ms, grid_ms = [], [], [], []
-    for _ in range(2):  # kernel, plain, library, in turns
+    for _ in range(2):  # wrapper, kernel, plain, library, in turns
         warp_ms.append(cuda_ms(lambda: warp_batch_kernel(images, affines), 20))
         warp_launch_ms.append(cuda_ms(lambda: warp_batch_kernel.launch(images, inverse), 20))
         warp_plain_ms.append(cuda_ms(lambda: warp_batch_plain(images, affines), 10))
@@ -614,7 +622,7 @@ def main():
         "model_forward_b16_ms": forward_ms,
         "eval_loop_frames_per_s": 64 / loop_s,
         "eval_loop_s": loop_s,
-        "warp_kernel_ms": warp_ms,
+        "warp_wrapper_with_inverse_ms": warp_ms,
         "warp_kernel_launch_only_ms": warp_launch_ms,
         "warp_plain_ms": warp_plain_ms,
         "warp_grid_sample_ms": grid_ms,
@@ -639,7 +647,8 @@ def main():
             conv_cases[f"{b}x{h}x{w}x{ci}->{co} relu={r}"] = compare_conv_int8(
                 *int8_case(gen, b, h, w, ci, co), r)[1]
     for b, h, w, ci, co, relu in [(1, 25, 50, 64, 64, True), (3, 7, 9, 32, 8, False),
-                                  (2, 33, 17, 96, 200, True), (1, 1, 1, 32, 8, False)]:
+                                  (2, 33, 17, 96, 200, True), (1, 1, 1, 32, 8, False),
+                                  (1, 26, 51, 64, 264, True), (4, 50, 50, 64, 200, False)]:
         conv_cases[f"{b}x{h}x{w}x{ci}->{co} relu={relu}"] = compare_conv_int8(
             *int8_case(gen, b, h, w, ci, co), relu)[1]
     x_q, w1, k1, b1 = int8_case(gen, 2, 50, 50, 256, 512)
@@ -755,6 +764,25 @@ def main():
              int8_forward_b16_profile=int8_forward_profile,
              int8_eval_loop_s=int8_loop_s, int8_eval_loop_frames_per_s=64 / int8_loop_s)
 
+    # The conv kernel's limits at the main path's shapes.
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ptxas = cuda_build.ptxas_report("conv_int8_kernel")
+    link_limits, by_map = [], {}
+    for (b, h, w, ci, co, relu), ms in zip(shapes16, link_ms):
+        plan = conv3x3_int8_kernel.plan(b, h, w, ci, co, sms)
+        built = next(v for k, v in ptxas.items() if f"wgmmaILi{plan.bn}ELi{plan.bk}EE" in k)
+        link_bound = conv_int8_bound_ms([(b, h, w, ci, co, relu)])[0]
+        link_limits.append({"link": [b, h, w, ci, co], "tile_th_tw_bn_bk": [plan.th, plan.tw, plan.bn, plan.bk],
+                            "stages": plan.stages, "tiles": plan.tiles, "blocks": plan.blocks,
+                            "dynamic_smem": plan.smem, **built, "ms": ms, "bound_ms": link_bound,
+                            "share_of_bound": link_bound / ms})
+        ops, t = by_map.get(h, (0, 0.0))
+        by_map[h] = (ops + 2 * 9 * b * h * w * ci * co, t + ms)
+    progress("conv_int8_limits", card=smi, sms=sms, links=link_limits,
+             chain_share_of_bound=conv_bound / chain_ms,
+             tops_by_map={f"{h}x{h}": ops / t / 1e9 for h, (ops, t) in sorted(by_map.items())},
+             ms_by_map={f"{h}x{h}": t for h, (_, t) in sorted(by_map.items())})
+
     kernels = [{
         "name": "score_kernel",
         "route": "cuda",
@@ -774,7 +802,7 @@ def main():
         "replaces": "dream_tpu/ops/pallas_warp.py:74",
         "launches": train_launches["warp_kernel"],
         "max_abs_err": warp_err,
-        "ms": min(warp_ms),
+        "ms": min(warp_launch_ms),
         "plain_ms": min(warp_plain_ms),
         "bound_ms": warp_bound,
         "bound_by": warp_bound_by,

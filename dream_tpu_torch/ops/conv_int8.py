@@ -24,7 +24,18 @@ channel's taps contiguous), and so does everything here but
   the epilogue.  The CPU path and the yardstick for the kernel.
 - :data:`conv3x3_int8_kernel`: the wrapper of ``csrc/conv_int8_kernel.cu``,
   built with ``nvcc`` on first use (:mod:`dream_tpu_torch.ops.cuda_build`);
-  ``conv3x3_int8_kernel.launches`` counts its launches.
+  ``conv3x3_int8_kernel.launches`` counts its launches.  The kernel is an
+  implicit GEMM on Hopper's warpgroup MMA (``wgmma`` s8) with operands that
+  TMA brings into a shared-memory ring: one persistent block a SM walks
+  tiles of ``th x tw`` output pixels of one image (5 x 25 on the chain's
+  maps) by ``bn`` output channels, two consumer warpgroups taking the tiles
+  in turns; each k-block is one tap by ``bk`` input channels, one TMA box of
+  the activations shifted by the tap, zero-filled past the image.  It
+  equals the plain version bit for bit; its times on the card are in
+  ``PERF.md`` section 6.
+- :func:`tile_plan` and :func:`tile_origin`: that tiling, as the kernel's
+  launch function picks it and as its blocks walk it, so that the CPU tests
+  can show every output pixel and channel is covered exactly once.
 - :func:`conv3x3_int8_ohwi`: picks by the tensor's device, never by
   catching an error: a CUDA tensor goes to the kernel, a CPU tensor to the
   plain version.  :func:`conv3x3_int8` is the same with HWIO weights.
@@ -33,7 +44,8 @@ channel's taps contiguous), and so does everything here but
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -91,6 +103,68 @@ def conv3x3_int8_plain(x_q: torch.Tensor, w_q: torch.Tensor, k: torch.Tensor, b:
     return requantize(conv3x3_int32_plain(x_q, w_q), k, b, relu).contiguous()
 
 
+class TilePlan(NamedTuple):
+    """The kernel's tiling of one launch (``conv3x3_int8_plan`` in the
+    source): ``th x tw`` pixels by ``bn`` channels a tile, ``bk`` input
+    channels a k-block, ``stages`` in the shared-memory ring, ``tiles`` in
+    all, ``blocks`` launched (one a SM at most), ``smem`` bytes of dynamic
+    shared memory a block."""
+
+    th: int
+    tw: int
+    bn: int
+    bk: int
+    stages: int
+    tiles: int
+    blocks: int
+    smem: int
+
+
+_RING_BYTES = 200 * 1024
+_MAX_STAGES = 8
+
+
+def tile_plan(b: int, h: int, w: int, ci: int, co: int, sms: int) -> TilePlan:
+    """The tiling ``conv3x3_int8_launch`` picks on a card with ``sms`` SMs
+    (``plan_tiles`` in the source, line for line): 64 channels a tile when
+    ``co <= 64``, else 128; a pixel tile of at most 16384 / bn pixels (256 or
+    128: 128 accumulators a thread either way) with the fewest tiles over an
+    image, then the least overhang past its edges, then the widest; the
+    widest of 128, 64, 32 input channels that divides ``ci``."""
+    bn = 64 if co <= 64 else 128
+    rows = 16384 // bn
+    best = None
+    for tw_ in range(min(w, rows), 0, -1):
+        th_ = min(h, rows // tw_)
+        th_n, tw_n = -(-h // th_), -(-w // tw_)
+        key = (th_n * tw_n, th_n * th_ - h + tw_n * tw_ - w)
+        if best is None or key < best[0]:
+            best = (key, th_, tw_)
+    (n, _), th, tw = best
+    tiles = b * n * -(-co // bn)
+    bk = 128 if ci % 128 == 0 else 64 if ci % 64 == 0 else 32
+    stage = (rows + bn) * bk
+    stages = min(_RING_BYTES // stage, _MAX_STAGES)
+    return TilePlan(th, tw, bn, bk, stages, tiles, min(tiles, sms), stages * stage + 1024)
+
+
+@functools.lru_cache(maxsize=256)
+def _tile_count(b: int, h: int, w: int, ci: int, co: int) -> int:
+    return tile_plan(b, h, w, ci, co, 1).tiles
+
+
+def tile_origin(plan: TilePlan, h: int, w: int, co: int, tile: int) -> Tuple[int, int, int, int]:
+    """(image, first row, first column, first channel) of tile ``tile``, in
+    the order the kernel's blocks walk them: the channel tiles of one pixel
+    tile next to each other, then along a row of tiles, down the image, and
+    image after image."""
+    n_tiles_n = -(-co // plan.bn)
+    tiles_w, tiles_h = -(-w // plan.tw), -(-h // plan.th)
+    m = tile // n_tiles_n
+    return (m // (tiles_w * tiles_h), (m // tiles_w) % tiles_h * plan.th, m % tiles_w * plan.tw,
+            tile % n_tiles_n * plan.bn)
+
+
 class ConvInt8Kernel:
     """Callable wrapper of the CUDA int8 conv kernel with a launch counter."""
 
@@ -107,8 +181,18 @@ class ConvInt8Kernel:
                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ]
             lib.conv3x3_int8_launch.restype = ctypes.c_int
+            lib.conv3x3_int8_plan.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+            lib.conv3x3_int8_plan.restype = ctypes.c_int
             self._lib = lib
         return self._lib
+
+    def plan(self, b: int, h: int, w: int, ci: int, co: int, sms: int) -> TilePlan:
+        """The tiling as the built kernel's launch function picks it."""
+        out = (ctypes.c_int * 8)()
+        err = self.load().conv3x3_int8_plan(b, h, w, ci, co, sms, out)
+        if err != 0:
+            raise ValueError(f"the int8 conv kernel refuses {(b, h, w, ci, co)}: CUDA error {err}")
+        return TilePlan(*out)
 
     def __call__(self, x_q: torch.Tensor, w_q: torch.Tensor, k: torch.Tensor, b: torch.Tensor,
                  relu: bool = True) -> torch.Tensor:
@@ -124,8 +208,8 @@ class ConvInt8Kernel:
         co = w_q.shape[0]
         if ci % 32 or co % 8:
             raise ValueError(f"the int8 conv kernel needs Ci % 32 == 0 and Co % 8 == 0, got {ci}, {co}")
-        if bsz > 65535 or -(-h // 8) * -(-w // 16) > 65535:
-            raise ValueError(f"the int8 conv kernel takes at most 65535 images and 65535 tiles, "
+        if bsz > 65535 or _tile_count(bsz, h, w, ci, co) > 2**31 - 1:
+            raise ValueError(f"the int8 conv kernel takes at most 65535 images and 2**31 - 1 tiles, "
                              f"got {tuple(x_q.shape)}")
         out = torch.empty((bsz, h, w, co), dtype=torch.int8, device=x_q.device)
         if out.numel() == 0:

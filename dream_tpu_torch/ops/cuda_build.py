@@ -105,8 +105,8 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
-    """Per kernel of a built library: registers, spill stores and loads
-    (bytes), from the ptxas report kept at build time."""
+    """Per kernel of a built library: registers, spill stores and loads and
+    static shared memory (bytes), from the ptxas report kept at build time."""
     text = library_path(name).with_suffix(".ptxas.txt").read_text()
     report: Dict[str, Dict[str, int]] = {}
     kernel = None
@@ -125,4 +125,7 @@ def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             report[kernel]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            report[kernel]["static_smem"] = int(m.group(1))
     return report

@@ -187,6 +187,37 @@ def test_conv_int8_kernel_matches_plain_at_odd_shapes(cuda, shape, relu):
     _check_conv(cuda, np.random.RandomState(sum(shape)), *shape, relu)
 
 
+# The wgmma kernel's tiling: one link of each map size of the chain at the
+# main path's batch; H and W that are not multiples of the 5 x 25 tile;
+# Ci of each k-block width (32, 64, 96 -> 32-, 64- and 32-byte swizzle,
+# 128 and up -> 128-byte); Co of 8, 40, 200 and 264 (partial channel
+# tiles, a partial second one at 264).
+NEW_TILING_CASES = [
+    ((16, 200, 200, 64, 128), True), ((16, 100, 100, 256, 256), True),
+    ((16, 50, 50, 512, 512), True), ((16, 25, 25, 512, 512), True),
+    ((3, 7, 9, 32, 8), False), ((2, 33, 17, 96, 200), True), ((2, 1, 1, 64, 40), False),
+    ((1, 26, 51, 64, 264), True), ((4, 50, 50, 64, 200), False), ((16, 50, 50, 128, 264), True),
+    ((1, 130, 3, 32, 64), False), ((2, 31, 77, 96, 40), True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,relu", NEW_TILING_CASES, ids=lambda v: "x".join(map(str, v))
+                         if isinstance(v, tuple) else str(v))
+def test_conv_int8_kernel_matches_plain_across_tilings(cuda, shape, relu):
+    ref = _check_conv(cuda, np.random.RandomState(sum(shape)), *shape, relu)
+    if ref.numel() >= 2000:  # the data reach both clamps
+        assert int((ref == 127).sum()) > 0 and int((ref == (0 if relu else -127)).sum()) > 0
+
+
+@pytest.mark.cuda
+def test_conv_int8_plan_of_the_library_is_tile_plan(cuda):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for shape in [s[:5] for s in chain_shapes(16)] + [s for s, _ in NEW_TILING_CASES]:
+        for n_sms in (sms, 132, 7):
+            assert conv_int8.conv3x3_int8_kernel.plan(*shape, n_sms) == conv_int8.tile_plan(*shape, n_sms)
+
+
 @pytest.mark.cuda
 def test_conv_int8_dispatch_and_two_link_chain(cuda):
     rng = np.random.RandomState(3)
