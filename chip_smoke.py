@@ -37,11 +37,14 @@ Phases, each ending with one JSON progress line on stdout:
    relative (cuDNN deterministic); and a save to a temporary directory,
    reloaded through the port, must give bit-equal parameters and identical
    belief maps;
-7. timings with CUDA events after warm-up: the score kernel and its plain
-   version at the vgg-Q shape, the model forward at B=16 and frames/s of the
-   evaluation loop; the warp kernel on a given inverse (what F.grid_sample
-   is given too), the wrapper with its inverse, the plain version and
-   F.grid_sample at [32, 400, 400, 3]; the train step at
+7. timings with CUDA events after warm-up: the score kernel's device time
+   (a CUDA graph of 50 launches, so no host dispatch) at the vgg-Q shape
+   [112, 100, 100] and at [14, 400, 400], its wrapper's time a call and its
+   plain version's (back-to-back calls) at the vgg-Q shape, the model
+   forward at B=16 and frames/s of the evaluation loop; the warp kernel on a
+   given inverse (what F.grid_sample is given too) by device time and a
+   call, the wrapper with its inverse, the plain version and F.grid_sample
+   (device time and a call) at [32, 400, 400, 3]; the train step at
    B=32, split into the batch processor, forward, forward+backward and
    forward+backward+optimizer; peak device memory of training; and one
    step under torch.profiler: the device's busy share and longest kernels.
@@ -76,7 +79,9 @@ Phases, each ending with one JSON progress line on stdout:
    chain's TOP/s per map size (25, 50, 100, 200).
 
 Then a line listing the kernels with their measurements (each row's ms and
-library_ms time the same work), and as the last line
+library_ms time the same work; the score and warp rows' ms is device time
+from a CUDA graph, and the warp's library_ms too; redesigned_in names the
+design the kernel now has), and as the last line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
 before that line.  Without CUDA the script exits non-zero at once.
 """
@@ -138,6 +143,37 @@ def cuda_ms(fn, iters, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, launches=50, reps=5):
+    """Device milliseconds a call of ``fn()``, without host dispatch: CUDA
+    events around the replay of a CUDA graph of ``launches`` calls,
+    captured after a warm-up on a side stream; the least of ``reps``
+    replays."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    del graph
+    return min(times)
 
 
 def random_maps(rng, n, h, w):
@@ -569,9 +605,13 @@ def main():
 
     # 7. Timings.
     maps = random_maps(rng, 112, 100, 100)
+    maps_f = random_maps(rng, 14, 400, 400)
     score_ms = [cuda_ms(lambda: score_maps_kernel(maps), 50) for _ in range(2)]
     score_plain_ms = [cuda_ms(lambda: score_maps_plain(maps), 50) for _ in range(2)]
+    score_device_ms = [graph_ms(lambda: score_maps_kernel(maps)) for _ in range(2)]
+    score_f_device_ms = [graph_ms(lambda: score_maps_kernel(maps_f)) for _ in range(2)]
     score_bound, score_bound_by = kernel_bound_ms(112, 100, 100)
+    score_f_bound, _ = kernel_bound_ms(14, 400, 400)
     x = network.preprocess(torch.from_numpy(holdout["images"][:16]))
     x = x.permute(0, 3, 1, 2)
     with torch.no_grad():
@@ -590,11 +630,14 @@ def main():
     # The kernel on a given inverse is what F.grid_sample is timed on (and
     # what the TPU kernel is handed); the wrapper adds the batched inverse.
     warp_ms, warp_launch_ms, warp_plain_ms, grid_ms = [], [], [], []
+    warp_device_ms, grid_device_ms = [], []
     for _ in range(2):  # wrapper, kernel, plain, library, in turns
         warp_ms.append(cuda_ms(lambda: warp_batch_kernel(images, affines), 20))
         warp_launch_ms.append(cuda_ms(lambda: warp_batch_kernel.launch(images, inverse), 20))
+        warp_device_ms.append(graph_ms(lambda: warp_batch_kernel.launch(images, inverse), 20))
         warp_plain_ms.append(cuda_ms(lambda: warp_batch_plain(images, affines), 10))
         grid_ms.append(cuda_ms(grid_sample, 20))
+        grid_device_ms.append(graph_ms(grid_sample, 20))
     warp_bound, warp_bound_by = warp_bound_ms(TRAIN_BATCH, 400, 400, 3)
 
     trainer.enable_fused_training(augmenting)
@@ -616,18 +659,27 @@ def main():
     forward_backward_ms = cuda_ms(forward_backward, 3, warmup=1)
     step_profile = profile_busy(lambda: trainer.train_raw(generator, raw, kp_raw))
     timings = {
+        "card": smi,
+        "score_kernel_device_ms": score_device_ms,
         "score_kernel_ms": score_ms,
         "score_plain_ms": score_plain_ms,
         "score_bound_ms": score_bound,
+        "score_share_of_bound": score_bound / min(score_device_ms),
+        "score_kernel_14x400x400_device_ms": score_f_device_ms,
+        "score_14x400x400_bound_ms": score_f_bound,
+        "score_14x400x400_share_of_bound": score_f_bound / min(score_f_device_ms),
         "model_forward_b16_ms": forward_ms,
         "eval_loop_frames_per_s": 64 / loop_s,
         "eval_loop_s": loop_s,
         "warp_wrapper_with_inverse_ms": warp_ms,
+        "warp_kernel_device_ms": warp_device_ms,
         "warp_kernel_launch_only_ms": warp_launch_ms,
         "warp_plain_ms": warp_plain_ms,
         "warp_grid_sample_ms": grid_ms,
+        "warp_grid_sample_device_ms": grid_device_ms,
         "warp_grid_sample_max_abs_diff": grid_diff,
         "warp_bound_ms": warp_bound,
+        "warp_share_of_bound": warp_bound / min(warp_device_ms),
         "train_step_ms": step_ms,
         "train_images_per_s": TRAIN_BATCH / step_ms * 1e3,
         "train_batch_processor_ms": processor_ms,
@@ -790,11 +842,12 @@ def main():
         "replaces": "dream_tpu/ops/pallas_kernels.py:40",
         "launches": eval_launches["score_kernel"],
         "max_abs_err": score_err,
-        "ms": min(score_ms),
+        "ms": min(score_device_ms),
         "plain_ms": min(score_plain_ms),
         "bound_ms": score_bound,
         "bound_by": score_bound_by,
         "library_ms": None,
+        "redesigned_in": "second design: banded blur in registers fused with the peak test",
     }, {
         "name": "warp_kernel",
         "route": "cuda",
@@ -802,11 +855,12 @@ def main():
         "replaces": "dream_tpu/ops/pallas_warp.py:74",
         "launches": train_launches["warp_kernel"],
         "max_abs_err": warp_err,
-        "ms": min(warp_launch_ms),
+        "ms": min(warp_device_ms),
         "plain_ms": min(warp_plain_ms),
         "bound_ms": warp_bound,
         "bound_by": warp_bound_by,
-        "library_ms": min(grid_ms),
+        "library_ms": min(grid_device_ms),
+        "redesigned_in": "second design: 32x32-pixel tiles, fmodf only beyond the range",
     }, {
         "name": "conv_int8_kernel",
         "route": "cuda",
@@ -819,6 +873,7 @@ def main():
         "bound_ms": conv_bound,
         "bound_by": conv_bound_by,
         "library_ms": chain_library_ms,
+        "redesigned_in": "second design: wgmma on TMA-fed tiles",
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

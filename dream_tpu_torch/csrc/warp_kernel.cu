@@ -13,18 +13,27 @@
 // (8, 128) tiles and resamples each tile as one-hot hat-weight contractions
 // on the MXU, because a gather is slow there; that limits it to rotations of
 // at most 15 degrees, scales of at most 1.1 and shifts of 6.25%.  On Hopper
-// a gather is an ordinary load, so this kernel is the oracle itself: one
-// thread per output pixel of one image, reading its four taps of C
-// contiguous channels from the NHWC input (neighbouring threads read
-// neighbouring taps, which L1 and L2 serve) and writing C contiguous values.
-// The fold takes any coordinate, so any affine is correct, however many
-// times it folds.  Each arithmetic step is rounded on its own
-// (__fmul_rn/__fadd_rn never contract into an FMA) in the order of the
-// oracle and of the plain torch version, so the kernel agrees with the plain
-// version on the same inverse affine to the bit.  The fold is fmod plus the
-// sign fix of a floor-mod, which is jnp.mod's and torch.remainder's
-// definition and is exact.  The inverse affines come from a [B, 6] f32
-// device tensor that torch computes, so nothing syncs with the host.
+// a gather is an ordinary load, so this kernel is the oracle itself, and
+// takes any affine, however many times it folds.  A block computes a 32x32
+// tile of one image's output: the grid's x and y are the tiles, its z the
+// image, so no thread divides.  Lane l of warp w takes column l of the
+// tile's rows w, w + 8, w + 16, w + 24, so a warp's 32 pixels are row
+// neighbours and so are their taps (C contiguous channels each, read
+// through L1), and the block's source footprint is compact enough for L1 to
+// serve the taps that neighbouring rows share.  4 consecutive pixels a
+// thread with three 16-byte stores was slower, along whole rows and on
+// tiles of 4 or 2 rows a warp alike, and staging a warp's pixels through
+// shared memory for 16-byte stores was slower than plain stores (all timed
+// with scripts/compare_score_warp.py).
+// Each arithmetic step is rounded on its own (__fmul_rn/__fadd_rn never
+// contract into an FMA) in the order of the oracle and of the plain torch
+// version, so the kernel agrees with the plain version on the same inverse
+// affine to the bit.  The fold is the floor-mod of jnp.mod and
+// torch.remainder, fmod plus a sign fix; CUDA's fmodf is a loop, and
+// fmod(x, m) == x exactly when |x| < m, which holds for every coordinate of
+// the augmentation's range, so the kernel calls fmodf only beyond it.  The
+// inverse affines come from a [B, 6] f32 device tensor that torch computes,
+// so nothing syncs with the host.
 //
 // Bound.  Each value is read once and written once: 8 bytes against about
 // 20 flops a value (C = 3: ~30 flops of coordinates and weights a pixel
@@ -35,31 +44,29 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kTileW = 32;  // a block's output tile: kTileW x kTileH pixels
+constexpr int kTileH = 32;
+constexpr int kWarps = 8;   // warps a block
 
 // Reflect-101 fold of a coordinate into [0, n-1] (augment._reflect101):
 // r = x mod m with m = 2(n-1), floor-mod as jnp.mod; |r|; r > n-1 ? m-r : r.
+// fmodf(x, m) returns x itself when |x| < m (and for -0.0); NaN and +-inf
+// fail the test and take fmodf, which gives NaN as before.
 __device__ __forceinline__ float reflect101(float x, float n_minus_1, float m) {
-  float r = fmodf(x, m);
+  float r = fabsf(x) < m ? x : fmodf(x, m);
   if (r != 0.f && r < 0.f) r = __fadd_rn(r, m);
   r = fabsf(r);
   return r > n_minus_1 ? __fsub_rn(m, r) : r;
 }
 
-__global__ void __launch_bounds__(kThreads)
-warp_kernel(const float* __restrict__ images, const float* __restrict__ inverse,
-            float* __restrict__ out, int H, int W, int C) {
-  const int b = blockIdx.y;
-  const int p = blockIdx.x * kThreads + threadIdx.x;
-  if (p >= H * W) return;
-  const int y = p / W;
-  const int x = p - y * W;
-  const float* inv = inverse + (size_t)b * 6;
-  const float i00 = __ldg(inv + 0), i01 = __ldg(inv + 1), i02 = __ldg(inv + 2);
-  const float i10 = __ldg(inv + 3), i11 = __ldg(inv + 4), i12 = __ldg(inv + 5);
-  const float xf = (float)x, yf = (float)y;
-  float sx = __fadd_rn(__fadd_rn(__fmul_rn(i00, xf), __fmul_rn(i01, yf)), i02);
-  float sy = __fadd_rn(__fadd_rn(__fmul_rn(i10, xf), __fmul_rn(i11, yf)), i12);
+// Output pixel (x, y) of image `img` into o[0 .. C).
+template <int kC>
+__device__ __forceinline__ void sample(const float* __restrict__ img, float* o, int x, int H, int W,
+                                       int C, float i00, float i02, float i10, float i12,
+                                       float i01y, float i11y) {
+  const float xf = (float)x;
+  float sx = __fadd_rn(__fadd_rn(__fmul_rn(i00, xf), i01y), i02);
+  float sy = __fadd_rn(__fadd_rn(__fmul_rn(i10, xf), i11y), i12);
   const float wm1 = (float)(W - 1), hm1 = (float)(H - 1);
   sx = reflect101(sx, wm1, __fmul_rn(2.f, wm1));
   sy = reflect101(sy, hm1, __fmul_rn(2.f, hm1));
@@ -70,20 +77,59 @@ warp_kernel(const float* __restrict__ images, const float* __restrict__ inverse,
   const float ty = fminf(fmaxf(__fsub_rn(sy, (float)y0), 0.f), 1.f);
   const float ux = __fsub_rn(1.f, tx), uy = __fsub_rn(1.f, ty);
 
-  const float* img = images + (size_t)b * H * W * C;
-  const float* r0 = img + ((size_t)y0 * W + x0) * C;
-  const float* r1 = r0 + (size_t)W * C;
-  float* o = out + ((size_t)b * H * W + p) * C;
-  for (int c = 0; c < C; ++c) {
-    const float v00 = __ldg(r0 + c), v01 = __ldg(r0 + C + c);
-    const float v10 = __ldg(r1 + c), v11 = __ldg(r1 + C + c);
+  const int c_n = kC > 0 ? kC : C;
+  const float* r0 = img + ((size_t)y0 * W + x0) * c_n;
+  const float* r1 = r0 + (size_t)W * c_n;
+  auto tap = [&](int c) {
+    const float v00 = __ldg(r0 + c), v01 = __ldg(r0 + c_n + c);
+    const float v10 = __ldg(r1 + c), v11 = __ldg(r1 + c_n + c);
     // v00*(1-tx)*(1-ty) + v01*tx*(1-ty) + v10*(1-tx)*ty + v11*tx*ty, left to right.
     float acc = __fmul_rn(__fmul_rn(v00, ux), uy);
     acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(v01, tx), uy));
     acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(v10, ux), ty));
     acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(v11, tx), ty));
     o[c] = acc;
+  };
+  if constexpr (kC > 0) {
+#pragma unroll
+    for (int c = 0; c < kC; ++c) tap(c);
+  } else {
+    for (int c = 0; c < C; ++c) tap(c);
   }
+}
+
+// One block: a kTileW x kTileH tile of one image's output; lane l of warp w
+// takes column x0 + l of rows y0 + w, y0 + w + kWarps, ...  kC: the channel
+// count of the training path's RGB frames (3), or 0 for any C (given at run
+// time).
+template <int kC>
+__global__ void __launch_bounds__(32 * kWarps)
+warp_kernel(const float* __restrict__ images, const float* __restrict__ inverse,
+            float* __restrict__ out, int H, int W, int C) {
+  const int x = (int)blockIdx.x * kTileW + threadIdx.x;
+  const int b = blockIdx.z;
+  const int c_n = kC > 0 ? kC : C;
+  const float* inv = inverse + (size_t)b * 6;
+  const float i00 = __ldg(inv + 0), i01 = __ldg(inv + 1), i02 = __ldg(inv + 2);
+  const float i10 = __ldg(inv + 3), i11 = __ldg(inv + 4), i12 = __ldg(inv + 5);
+  const float* img = images + (size_t)b * H * W * c_n;
+  const int y_begin = (int)blockIdx.y * kTileH;
+  const int y_end = min(H, y_begin + kTileH);
+  for (int y = y_begin + (int)threadIdx.y; y < y_end; y += kWarps) {
+    const float yf = (float)y;
+    const float i01y = __fmul_rn(i01, yf), i11y = __fmul_rn(i11, yf);
+    float* row = out + ((size_t)b * H + y) * W * c_n;
+    if (x < W) sample<kC>(img, row + (size_t)x * c_n, x, H, W, C, i00, i02, i10, i12, i01y, i11y);
+  }
+}
+
+template <int kC>
+int launch(const float* images, const float* inverse, float* out, int B, int H, int W, int C,
+           cudaStream_t stream) {
+  const dim3 grid((unsigned)((W + kTileW - 1) / kTileW), (unsigned)((H + kTileH - 1) / kTileH),
+                  (unsigned)B);
+  warp_kernel<kC><<<grid, dim3(32, kWarps), 0, stream>>>(images, inverse, out, H, W, C);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -91,16 +137,15 @@ warp_kernel(const float* __restrict__ images, const float* __restrict__ inverse,
 extern "C" {
 
 // images [B, H, W, C] f32 contiguous, inverse [B, 6] f32 (row-major 2x3 of
-// the inverse affine), out [B, H, W, C] f32; H, W >= 2.  Launches on
-// `stream` and returns the launch's cudaError_t (0 on success).
-int warp_kernel_launch(const float* images, const float* inverse, float* out,
-                       int B, int H, int W, int C, void* stream) {
-  if (B <= 0 || H < 2 || W < 2 || C <= 0 || B > 65535) return (int)cudaErrorInvalidValue;
-  const long long pixels = (long long)H * W;
-  if (pixels > 0x7fffffffLL - kThreads) return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned)((pixels + kThreads - 1) / kThreads), (unsigned)B);
-  warp_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(images, inverse, out, H, W, C);
-  return (int)cudaGetLastError();
+// the inverse affine), out [B, H, W, C] f32; H, W >= 2; B <= 65535.
+// Launches on `stream` and returns the launch's cudaError_t (0 on success).
+int warp_kernel_launch(const float* images, const float* inverse, float* out, int B, int H,
+                       int W, int C, void* stream) {
+  if (B <= 0 || H < 2 || W < 2 || C <= 0 || B > 65535 || (H + kTileH - 1) / kTileH > 65535)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (C == 3) return launch<3>(images, inverse, out, B, H, W, C, s);
+  return launch<0>(images, inverse, out, B, H, W, C, s);
 }
 
 }  // extern "C"

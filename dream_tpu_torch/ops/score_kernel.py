@@ -10,7 +10,11 @@ count per map.
 - :func:`_blur_operator` / :func:`_blur_band`: the reflect-folded sigma-3
   blur as a dense operator and in banded form (numpy copies of the JAX
   package's ``belief_maps.py:112-136``); both versions take their weights
-  from the same dense operator.
+  from the same dense operator.  :func:`_blur_table` and :func:`_edge_table`
+  are the band in the compact forms the kernel reads.
+- :func:`score_plan`: how the kernel cuts the maps into bands, blocks and
+  clusters; the wrapper passes it to the kernel, and the CPU tests run a
+  numpy model of the kernel under it.
 - :func:`score_maps_plain`: the plain torch version, the blur as two dense
   matmuls plus shifted compares (``belief_maps.py:218-243`` of the JAX
   package).  The CPU path and the yardstick for the kernel.
@@ -27,6 +31,7 @@ count per map.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from pathlib import Path
 from typing import Dict, Optional, Tuple
@@ -40,14 +45,16 @@ from dream_tpu_torch.ops import cuda_build
 PEAK_THRESHOLD = 0.01  # reference dream/image_proc.py:925
 PEAK_BLUR_SIGMA = 3  # reference dream/image_proc.py:926
 
-# Shared memory a block aims for, and the most it may take on sm_90: the
-# 227 KB opt-in limit less the kernel's 32 bytes of static warp sums.
-_SMEM_TARGET = 96 * 1024
-_SMEM_MAX = 232448 - 32
-# Most output rows a block owns: 4 blocks per 100-row map keep a vgg-Q batch
-# of 112 maps at 448 blocks, several per SM, where one block per map leaves
-# most of the card's 132 SMs with a single short block.
-_ROWS_MAX = 25
+_RADIUS = 12  # the sigma-3 Gaussian's reach, int(4 * 3 + 0.5)
+_TAPS = 2 * _RADIUS + 1
+_HALO = _RADIUS + 1  # input rows a band reads beyond its own, each side
+_EDGE_SLOTS = 2 * _RADIUS  # border columns, 12 at each side
+_MAX_CLUSTER = 8  # blocks a map: the portable thread block cluster size
+# Shared memory up to which a map stays on one block (a 100x100 map takes
+# 80,000 bytes), and the most a block may take on sm_90: the 227 KB opt-in
+# limit less the kernel's static shared memory (80 bytes), rounded down.
+_SMEM_TARGET = 100 * 1024
+_SMEM_MAX = 232448 - 128
 
 
 @functools.lru_cache(maxsize=None)
@@ -123,15 +130,105 @@ def build(verbose: bool = False) -> Path:
     return cuda_build.build("score_kernel", verbose=verbose)
 
 
-def rows_per_block(h: int, w: int) -> int:
-    """Output rows one block owns: at most 25, and no more than keep its
-    shared memory (input band + 13-row halos + the blurred band) within
-    96 KB; at least 1."""
-    rows = (_SMEM_TARGET // (4 * w) - 28) // 2
-    rows = max(1, min(h, _ROWS_MAX, rows))
-    if (2 * rows + 28) * w * 4 > _SMEM_MAX:
+@functools.lru_cache(maxsize=None)
+def _blur_table(n: int, sigma: float, truncate: float = 4.0) -> np.ndarray:
+    """``[25, 25]`` compact form of :func:`_blur_band`, the kernel's weights.
+
+    For ``n >= 25``: the 12 folded rows at the top, one interior row (every
+    row ``12 <= i < n - 12`` is the unfolded Gaussian, equal to it), the 12
+    folded rows at the bottom.  A shorter map keeps its ``n`` rows (the
+    rest zero).  :func:`_table_row` maps a row to its table row.
+    """
+    band = _blur_band(n, sigma, truncate)
+    table = np.zeros((_TAPS, _TAPS), np.float32)
+    if n < _TAPS:
+        table[:n] = band
+    else:
+        table[:_RADIUS + 1] = band[:_RADIUS + 1]
+        table[_RADIUS + 1:] = band[n - _RADIUS:]
+    return table
+
+
+def _edge_slot(x: int, n: int) -> int:
+    """Slot of border column ``x`` (``x < 12`` or ``x >= n - 12``) of an
+    ``n``-wide map in :func:`_edge_table`."""
+    return x if x < _RADIUS else x - n + _EDGE_SLOTS
+
+
+@functools.lru_cache(maxsize=None)
+def _edge_table(n: int, sigma: float, truncate: float = 4.0) -> np.ndarray:
+    """``[25, 24]`` weights of the border columns, transposed: column ``x``'s
+    tap ``t`` at ``[t, _edge_slot(x, n)]`` (zero where the tap falls outside
+    the map), so the kernel reads a tap of 4 neighbouring columns at once."""
+    band = _blur_band(n, sigma, truncate)
+    table = np.zeros((_TAPS, _EDGE_SLOTS), np.float32)
+    for x in range(n):
+        if x < _RADIUS or x >= n - _RADIUS:
+            table[:, _edge_slot(x, n)] = band[x]
+    return table
+
+
+def _table_row(b: int, n: int) -> int:
+    """Row of :func:`_blur_table` holding the weights of row ``b`` of ``n``."""
+    if n < _TAPS or b < _RADIUS:
+        return b
+    if b >= n - _RADIUS:
+        return b - n + _TAPS
+    return _RADIUS
+
+
+@dataclasses.dataclass(frozen=True)
+class ScorePlan:
+    """How the kernel cuts ``[N, H, W]`` maps: bands of ``rows`` output rows,
+    ``cluster`` blocks a map (a thread block cluster; block k takes bands k,
+    k + cluster, ...), ``vec`` columns a thread, ``smem`` bytes of dynamic
+    shared memory a block."""
+
+    rows: int
+    cluster: int
+    bands: int
+    vec: int
+    smem: int
+
+
+def smem_bytes(rows: int, h: int, w: int) -> int:
+    """A block's dynamic shared memory (``score_kernel_smem_bytes``): a
+    band's input rows with 13 more above and below, and its rows with one
+    more above and below blurred vertically (the rows blurred both ways take
+    the input rows' place)."""
+    return 4 * (min(h, rows + 2 * _HALO) + min(h, rows + 2)) * w
+
+
+@functools.lru_cache(maxsize=None)
+def score_plan(h: int, w: int, vec: Optional[int] = None,
+               cluster: Optional[int] = None) -> ScorePlan:
+    """The kernel's cut of ``h x w`` maps.
+
+    By default a map takes the fewest blocks (1, 2, 4 or 8) whose bands fit
+    in ``_SMEM_TARGET``; a 100x100 map is one block (on the H100, 112 maps
+    took 0.0140 ms at one block a map, 0.0213 and 0.0359 at clusters of 2
+    and 4: ``scripts/compare_score_warp.py``).  A map that does not fit in 8
+    such bands takes 8 blocks with the tallest bands that fit the shared
+    memory, and each block walks its bands in turn; a band of one row fits
+    maps up to 1,936 wide.  ``cluster`` fixes the number of blocks a map (for timing the alternatives); ``vec``
+    defaults to 4 where ``w % 4 == 0``.
+    """
+    vec = vec or (4 if w % 4 == 0 else 1)
+    if vec not in (1, 4) or w % vec:
+        raise ValueError(f"score kernel takes 1 or 4 columns a thread dividing {w}, got {vec}")
+    if cluster is None:
+        cluster = next((c for c in (1, 2, 4) if smem_bytes(-(-h // c), h, w) <= _SMEM_TARGET),
+                       _MAX_CLUSTER)
+    if not 1 <= cluster <= _MAX_CLUSTER:
+        raise ValueError(f"a map takes 1 to {_MAX_CLUSTER} blocks, got {cluster}")
+    rows = -(-h // cluster)  # then the tallest band that fits
+    while rows > 0 and smem_bytes(rows, h, w) > _SMEM_MAX:
+        rows -= 1
+    if rows == 0:
         raise ValueError(f"belief maps {w} wide do not fit the score kernel's shared memory")
-    return rows
+    bands = -(-h // rows)
+    cluster = min(cluster, bands)
+    return ScorePlan(rows, cluster, bands, vec, smem_bytes(rows, h, w))
 
 
 class ScoreKernel:
@@ -140,35 +237,47 @@ class ScoreKernel:
     def __init__(self):
         self.launches = 0
         self._lib: Optional[ctypes.CDLL] = None
-        self._bands: Dict[Tuple[int, torch.device, bool], torch.Tensor] = {}
+        self._tables: Dict[Tuple[int, int, torch.device], Tuple[torch.Tensor, np.ndarray]] = {}
 
     def load(self) -> ctypes.CDLL:
         if self._lib is None:
             lib = cuda_build.load("score_kernel")
             lib.score_kernel_launch.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
             ]
             lib.score_kernel_launch.restype = ctypes.c_int
-            lib.score_kernel_taps.argtypes = []
-            lib.score_kernel_taps.restype = ctypes.c_int
-            _, radius = _gaussian_kernel_scipy(float(PEAK_BLUR_SIGMA))
-            if lib.score_kernel_taps() != 2 * radius + 1:
-                raise RuntimeError("the built kernel's tap count does not match the blur band")
+            lib.score_kernel_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+            lib.score_kernel_smem_bytes.restype = ctypes.c_size_t
+            for name in ("taps", "max_cluster"):
+                getattr(lib, f"score_kernel_{name}").argtypes = []
+                getattr(lib, f"score_kernel_{name}").restype = ctypes.c_int
+            built = (lib.score_kernel_taps(), lib.score_kernel_max_cluster(),
+                     lib.score_kernel_smem_bytes(7, 30, 100), lib.score_kernel_smem_bytes(7, 9, 100))
+            if built != (_TAPS, _MAX_CLUSTER, smem_bytes(7, 30, 100), smem_bytes(7, 9, 100)):
+                raise RuntimeError(f"the built score kernel (taps, cluster, shared memory) {built} "
+                                   "does not match its plan")
             self._lib = lib
         return self._lib
 
-    def _band(self, n: int, device: torch.device, transposed: bool) -> torch.Tensor:
-        """The ``[n, taps]`` blur band on ``device`` (``[taps, n]`` if transposed)."""
-        key = (n, device, transposed)
-        if key not in self._bands:
-            band = torch.from_numpy(_blur_band(n, float(PEAK_BLUR_SIGMA)))
-            self._bands[key] = (band.T if transposed else band).contiguous().to(device)
-        return self._bands[key]
+    def _table(self, h: int, w: int, device: torch.device) -> Tuple[torch.Tensor, np.ndarray]:
+        """The kernel's weights for ``h x w`` maps: the columns' border
+        table on the device, and in host memory the rows' blur table then
+        the Gaussian (every interior row's and column's weights), which the
+        launch passes by value."""
+        key = (h, w, device)
+        if key not in self._tables:
+            sigma = float(PEAK_BLUR_SIGMA)
+            weights = np.concatenate([_blur_table(h, sigma).ravel(), _gaussian_kernel_scipy(sigma)[0]])
+            self._tables[key] = (torch.from_numpy(_edge_table(w, sigma)).to(device),
+                                 np.ascontiguousarray(weights, np.float32))
+        return self._tables[key]
 
-    def __call__(self, maps: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``[N, H, W]`` f32 contiguous CUDA maps -> ``(scored, count int32)``."""
+    def __call__(self, maps: torch.Tensor,
+                 plan: Optional[ScorePlan] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``[N, H, W]`` f32 contiguous CUDA maps -> ``(scored, count int32)``;
+        ``plan`` defaults to :func:`score_plan`."""
         if not maps.is_cuda:
             raise ValueError("score kernel takes CUDA tensors; use score_maps_plain on the CPU")
         if maps.dtype != torch.float32 or maps.dim() != 3 or not maps.is_contiguous():
@@ -177,20 +286,20 @@ class ScoreKernel:
                 f"{maps.dtype} {tuple(maps.shape)} contiguous={maps.is_contiguous()}"
             )
         n, h, w = maps.shape
-        lib = self.load()
-        band_h = self._band(h, maps.device, transposed=False)
-        band_wt = self._band(w, maps.device, transposed=True)
-        rows = rows_per_block(h, w)
+        if plan is None:
+            plan = score_plan(h, w, vec=4 if w % 4 == 0 and maps.data_ptr() % 16 == 0 else 1)
         scored = torch.empty_like(maps)
-        count = torch.zeros(n, dtype=torch.int32, device=maps.device)
+        count = torch.empty(n, dtype=torch.int32, device=maps.device)
         if n == 0:
             return scored, count
+        lib = self.load()
+        edge, weights = self._table(h, w, maps.device)
         with torch.cuda.device(maps.device):
             stream = torch.cuda.current_stream(maps.device).cuda_stream
             err = lib.score_kernel_launch(
-                maps.data_ptr(), band_h.data_ptr(), band_wt.data_ptr(),
-                scored.data_ptr(), count.data_ptr(), n, h, w, rows,
-                PEAK_THRESHOLD, stream,
+                maps.data_ptr(), edge.data_ptr(), weights.ctypes.data, scored.data_ptr(),
+                count.data_ptr(), n, h, w, plan.rows, plan.cluster, plan.vec, PEAK_THRESHOLD,
+                stream,
             )
         if err != 0:
             raise RuntimeError(f"score kernel launch failed: CUDA error {err}")

@@ -37,6 +37,7 @@ from dream_tpu.ops.pallas_warp import warp_batch_pallas
 
 from dream_tpu_torch.data import augment
 from dream_tpu_torch.data.dataset import make_batch_processor
+from dream_tpu_torch.ops import warp as warp_mod
 from dream_tpu_torch.ops.warp import inverse_affines, warp_batch, warp_batch_plain
 
 WARP_ATOL = 2e-2  # tests/test_pallas_warp.py:50, the HIGHEST-precision bound
@@ -122,6 +123,69 @@ def test_warp_batch_on_cpu_is_the_plain_version():
     images = torch.from_numpy(_images(4, 2, 20, 30))
     affines = augment.sample_augment_params(torch.Generator().manual_seed(1), 2, 20, 30, FULL_CFG).affines
     assert torch.equal(warp_batch(images, affines), warp_batch_plain(images, affines))
+
+
+def _fold_model(x, n):
+    """numpy model of csrc/warp_kernel.cu's reflect101: fmod only where
+    ``|x| >= m`` (elsewhere ``fmod(x, m) == x``), the floor-mod sign fix,
+    ``|r|``, the reflection; every step rounded to f32."""
+    x = np.asarray(x, np.float32)
+    m = np.float32(2 * (n - 1))
+    with np.errstate(invalid="ignore"):
+        r = np.where(np.abs(x) < m, x, np.fmod(x, m)).astype(np.float32)
+    r = np.where((r != 0) & (r < 0), r + m, r).astype(np.float32)
+    r = np.abs(r)
+    return np.where(r > np.float32(n - 1), m - r, r).astype(np.float32)
+
+
+def _fold_inputs(n):
+    m = np.float32(2 * (n - 1))
+    below, above = np.nextafter(m, np.float32(0)), np.nextafter(m, np.float32(np.inf))
+    special = [0.0, -0.0, m, -m, below, -below, above, -above, n - 1, np.nextafter(np.float32(n - 1), m),
+               0.5, -0.5, -1e-30, -1e-45, 1e-45, 3 * m, -7 * m, 1e6 * m, -1e6 * m, 2.0**40 * m,
+               1e30, -1e30, 3.4e38, -3.4e38, np.nan, -np.nan, np.inf, -np.inf]
+    rng = np.random.RandomState(n)
+    return np.concatenate([np.float32(special), rng.uniform(-3 * m, 3 * m, 500).astype(np.float32),
+                           (rng.randint(-50, 50, 100) * m).astype(np.float32)])
+
+
+def _same_bits(a, b):
+    """Equal bit for bit, except that any NaN equals any NaN."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    nan = np.isnan(a)
+    return bool(np.array_equal(nan, np.isnan(b))
+                and np.array_equal(a[~nan].view(np.int32), b[~nan].view(np.int32)))
+
+
+@pytest.mark.parametrize("n", [2, 5, 53, 400])
+def test_warp_fold_fast_path_is_exact(n):
+    """The kernel's fold, which skips fmod where |x| < m, equals the port's
+    plain ``_reflect101`` and JAX's ``augment._reflect101`` bit for bit,
+    at -0.0, +-m, m less one ulp, large multiples of m, NaN and inf.  XLA's
+    CPU backend treats subnormal inputs as zero (a subnormal -x folds to x
+    there, to 0 in torch and CUDA), so JAX is held to the normal values."""
+    x = _fold_inputs(n)
+    ours = _fold_model(x, n)
+    assert _same_bits(ours, warp_mod._reflect101(torch.from_numpy(x), n).numpy())
+    normal = ~((x != 0) & (np.abs(x) < np.finfo(np.float32).tiny))
+    assert (~normal).sum() == 2
+    assert _same_bits(ours[normal], np.asarray(jax_augment._reflect101(jnp.asarray(x[normal]), n)))
+
+
+@pytest.mark.parametrize("kind", ["random", "extreme"])
+def test_augmentation_range_never_reaches_fmod(kind):
+    """Within the augmentation's range every source coordinate of a 400x400
+    frame lies inside (-m, m), so the kernel's fold never calls fmodf."""
+    h = w = 400
+    if kind == "random":
+        cfg = augment.DEFAULT_AUGMENT._replace(p_shift_scale_rotate=1.0)
+        affines = augment.sample_augment_params(torch.Generator().manual_seed(5), 64, h, w, cfg).affines
+    else:
+        affines = torch.from_numpy(_extreme_affine(h, w))
+    inv = inverse_affines(affines).reshape(-1, 2, 3).numpy()
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    src = inv[:, :, 0, None, None] * xs + inv[:, :, 1, None, None] * ys + inv[:, :, 2, None, None]
+    assert np.abs(src[:, 0]).max() < 2 * (w - 1) and np.abs(src[:, 1]).max() < 2 * (h - 1)
 
 
 def _jax_draws(key, n, h, w, c, cfg):

@@ -216,7 +216,8 @@ FORBIDDEN_IMPORTS = {
 PORT_SOURCES = sorted(
     glob.glob(os.path.join(ROOT, "dream_tpu_torch", "**", "*.py"), recursive=True)
 ) + [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "scripts", "profile_torch_eval.py"),
-     os.path.join(ROOT, "scripts", "compare_conv_int8.py")]
+     os.path.join(ROOT, "scripts", "compare_conv_int8.py"),
+     os.path.join(ROOT, "scripts", "compare_score_warp.py")]
 
 
 @pytest.mark.parametrize("path", PORT_SOURCES, ids=lambda p: os.path.relpath(p, ROOT))

@@ -35,7 +35,8 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(112, 100, 100), (14, 400, 400), (21, 37, 53), (3, 5, 300)])
+@pytest.mark.parametrize("shape", [(112, 100, 100), (14, 400, 400), (21, 37, 53), (3, 5, 300),
+                                   (5, 12, 12), (2, 401, 399), (2, 40, 1936)])
 def test_score_kernel_matches_plain(cuda, shape):
     maps = torch.from_numpy(_maps(np.random.RandomState(6), *shape)).to(cuda)
     before = score_kernel.score_maps_kernel.launches
@@ -43,6 +44,29 @@ def test_score_kernel_matches_plain(cuda, shape):
     ref_scored, ref_count = score_kernel.score_maps_plain(maps)
     torch.cuda.synchronize()
     assert score_kernel.score_maps_kernel.launches == before + 1
+    assert torch.equal(count, ref_count)
+    assert torch.equal(scored, ref_scored)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,rows,cluster", [
+    ((112, 100, 100), None, 2), ((112, 100, 100), None, 4), ((6, 100, 100), 9, 4),
+    ((4, 37, 53), 5, 3), ((3, 400, 400), None, 1), ((5, 60, 80), 20, None),
+])
+def test_score_kernel_plans_match_plain(cuda, shape, rows, cluster):
+    """Other cuts than the default: clusters of 2-4 blocks a map, blocks that
+    walk several bands (bands of 9 and 5 rows), one block a 400x400 map."""
+    n, h, w = shape
+    if rows is None:
+        plan = score_kernel.score_plan(h, w, cluster=cluster)
+    else:
+        bands = -(-h // rows)
+        plan = score_kernel.ScorePlan(rows, min(cluster or 1, bands), bands, 4 if w % 4 == 0 else 1,
+                                      score_kernel.smem_bytes(rows, h, w))
+    maps = torch.from_numpy(_maps(np.random.RandomState(5), *shape)).to(cuda)
+    scored, count = score_kernel.score_maps_kernel(maps, plan)
+    ref_scored, ref_count = score_kernel.score_maps_plain(maps)
+    torch.cuda.synchronize()
     assert torch.equal(count, ref_count)
     assert torch.equal(scored, ref_scored)
 
@@ -87,7 +111,8 @@ def _warp_inputs(rng, b, h, w, c, kind):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["random", "extreme", "multifold", "identity"])
-@pytest.mark.parametrize("shape", [(4, 400, 400, 3), (3, 37, 53, 3), (2, 64, 128, 1), (2, 2, 5, 4)])
+@pytest.mark.parametrize("shape", [(4, 400, 400, 3), (3, 37, 53, 3), (2, 64, 128, 1), (2, 2, 5, 4),
+                                   (2, 31, 21, 3), (3, 16, 10, 1), (2, 9, 7, 2)])
 def test_warp_kernel_matches_plain(cuda, shape, kind):
     images, affines = _warp_inputs(np.random.RandomState(8), *shape, kind)
     images, affines = images.to(cuda), affines.to(cuda)

@@ -141,39 +141,113 @@ def test_blur_band_holds_the_whole_operator(n):
     np.testing.assert_array_equal(rebuilt, dense)
 
 
-def _emulate_score_kernel(maps, rows):
-    """numpy model of csrc/score_kernel.cu: row bands with 13-row halos,
-    vertical then horizontal 25-tap blur from the banded weights (taps
-    summed in ascending order), zero-filled 4-neighbour test."""
+@pytest.mark.parametrize("n", [1, 5, 12, 13, 24, 25, 26, 37, 100, 400])
+def test_blur_table_holds_every_row(n):
+    """The kernel's compact table gives every row its banded weights, every
+    interior row is the table's interior row, the plain Gaussian, and the
+    border table holds each border column's weights."""
+    band = score_kernel._blur_band(n, 3.0)
+    table = score_kernel._blur_table(n, 3.0)
+    for b in range(n):
+        np.testing.assert_array_equal(table[score_kernel._table_row(b, n)], band[b])
+    if n >= 25:
+        gauss, _ = score_kernel._gaussian_kernel_scipy(3.0)
+        np.testing.assert_array_equal(table[12], gauss)
+    edge = score_kernel._edge_table(n, 3.0)
+    for x in range(n):
+        if x < 12 or x >= n - 12:
+            np.testing.assert_array_equal(edge[:, score_kernel._edge_slot(x, n)], band[x])
+
+
+STRIP = 8  # csrc/score_kernel.cu kStrip
+
+
+def _fma(a, b, c):
+    """f32 fmaf, modelled in float64: the product is exact, the sum rounds."""
+    return (np.float64(a) * np.asarray(b, np.float64) + np.asarray(c, np.float64)).astype(np.float32)
+
+
+def _emulate_score_kernel(maps, plan):
+    """numpy model of csrc/score_kernel.cu under ``plan``: per map, ``cluster``
+    blocks walk the bands k, k + cluster, ...; a band stages its rows and 13
+    more above and below, blurs its rows and one above and below vertically
+    from them in strips of 8 (interior strips first, with
+    the Gaussian as weights), then horizontally (interior column
+    groups first), then tests the peaks of its rows; block 0 adds the
+    blocks' counts.  Asserts that every blurred and scored value is written
+    exactly once."""
     n, h, w = maps.shape
-    band_h = score_kernel._blur_band(h, 3.0)
-    band_w = score_kernel._blur_band(w, 3.0)
-    scored = np.full_like(maps, -np.inf)
+    table_h = score_kernel._blur_table(h, 3.0)
+    gauss, _ = score_kernel._gaussian_kernel_scipy(3.0)
+    edge_w = score_kernel._edge_table(w, 3.0)
+    v = plan.vec
+    ncg = w // v
+    cg_lo = (12 + v - 1) // v
+    cg_hi = max(cg_lo, (w - 12 - v) // v + 1 if w - 12 - v >= 0 else 0)
+    edge_cgs = [cg for cg in range(ncg) if not cg_lo <= cg < cg_hi]
+    scored = np.full_like(maps, np.nan)
     count = np.zeros(n, np.int32)
     for m in range(n):
-        for r0 in range(0, h, rows):
-            r1 = min(r0 + rows, h)
-            lo, hi = max(0, r0 - 13), min(h, r1 + 13)
-            b0, b1 = max(0, r0 - 1), min(h, r1 + 1)
-            tile = maps[m, lo:hi]
-            vb = np.zeros((b1 - b0, w), np.float32)
-            for rb in range(b1 - b0):
-                b = b0 + rb
-                for t in range(max(0, 12 - b), min(25, h - b + 12)):
-                    vb[rb] += band_h[b, t] * tile[b + t - 12 - lo]
-            hb = np.zeros_like(vb)
-            padded = np.pad(vb, ((0, 0), (12, 12)))
-            for t in range(25):
-                hb += band_w[:, t][None, :] * padded[:, t : t + w]
-            pad = np.pad(hb, 1)
-            for y in range(r0, r1):
-                r = y - b0 + 1
-                v = pad[r, 1:-1]
-                up = pad[r - 1, 1:-1] if y >= 1 else 0.0
-                down = pad[r + 1, 1:-1] if y < h - 1 else 0.0
-                peak = (v >= up) & (v >= down) & (v >= pad[r, :-2]) & (v >= pad[r, 2:]) & (v > 0.01)
-                scored[m, y] = np.where(peak, maps[m, y], -np.inf)
-                count[m] += int(peak.sum())
+        block_sums = []
+        for rank in range(plan.cluster):
+            local = 0
+            for band in range(rank, plan.bands, plan.cluster):
+                r0 = band * plan.rows
+                r1 = min(r0 + plan.rows, h)
+                b0, b1 = max(0, r0 - 1), min(h, r1 + 1)
+                lo, hi = max(0, r0 - 13), min(h, r1 + 13)  # the rows staged in shared memory
+                nb = b1 - b0
+                vb = np.full((nb, w), np.nan, np.float32)
+                strips = -(-nb // STRIP)
+                s_lo = min(strips, 0 if b0 >= 12 else -(-(12 - b0) // STRIP))
+                lim = min(h - 12, b1) - STRIP - b0
+                s_hi = max(s_lo, min(strips, lim // STRIP + 1 if lim >= 0 else 0))
+                for j in list(range(s_lo, s_hi)) + [j for j in range(strips) if not s_lo <= j < s_hi]:
+                    interior = s_lo <= j < s_hi
+                    y0 = b0 + j * STRIP
+                    rows = min(STRIP, b1 - y0)
+                    acc = np.zeros((STRIP, w), np.float32)
+                    for i in range(STRIP + 24):
+                        r = y0 - 12 + i
+                        if not lo <= r < hi:
+                            assert not interior
+                            continue
+                        for s in range(min(rows, i + 1)):
+                            if i - s < 25:
+                                wt = gauss if interior else table_h[score_kernel._table_row(y0 + s, h)]
+                                acc[s] = _fma(wt[i - s], maps[m, r], acc[s])
+                    assert np.isnan(vb[y0 - b0 : y0 - b0 + rows]).all()
+                    vb[y0 - b0 : y0 - b0 + rows] = acc[:rows]
+                assert not np.isnan(vb).any()
+                hb = np.full_like(vb, np.nan)
+                vb_pad = np.pad(vb, ((0, 0), (12, 12)))  # values off the row read as zeros
+                cols = np.arange(cg_lo * v, cg_hi * v)
+                acc = np.zeros((nb, cols.size), np.float32)
+                for t in range(25):
+                    acc = _fma(gauss[t], vb_pad[:, cols + t], acc)
+                hb[:, cols] = acc
+                for x in (cg * v + c for cg in edge_cgs for c in range(v)):
+                    acc = np.zeros(nb, np.float32)
+                    slot = score_kernel._edge_slot(x, w)
+                    for t in range(25):  # zero weight times zero pad outside the row
+                        acc = _fma(edge_w[t, slot], vb_pad[:, x + t], acc)
+                    assert np.isnan(hb[:, x]).all()
+                    hb[:, x] = acc
+                assert not np.isnan(hb).any()
+                pad = np.pad(hb, ((1, 1), (1, 1)))
+                for y in range(r0, r1):
+                    r = y - b0 + 1
+                    val = pad[r, 1:-1]
+                    up = pad[r - 1, 1:-1] if y >= 1 else 0.0
+                    down = pad[r + 1, 1:-1] if y < h - 1 else 0.0
+                    peak = ((val >= up) & (val >= down) & (val >= pad[r, :-2]) & (val >= pad[r, 2:])
+                            & (val > 0.01))
+                    assert np.isnan(scored[m, y]).all()
+                    scored[m, y] = np.where(peak, maps[m, y], -np.inf)
+                    local += int(peak.sum())
+            block_sums.append(local)
+        count[m] = sum(block_sums)
+    assert not np.isnan(scored).any()
     return scored, count
 
 
@@ -186,29 +260,71 @@ def _noisy_maps(rng, n, h, w, n_blobs=3):
     return maps + rng.rand(n, h, w).astype(np.float32) * 0.004
 
 
+def _plan(h, w, rows=None, cluster=None, vec=None):
+    """score_plan, or a hand-made plan of ``rows``-row bands (a block then
+    walks several bands when they outnumber ``cluster``)."""
+    if rows is None:
+        return score_kernel.score_plan(h, w, vec=vec, cluster=cluster)
+    vec = vec or (4 if w % 4 == 0 else 1)
+    bands = -(-h // rows)
+    return score_kernel.ScorePlan(rows, min(cluster or 1, bands), bands, vec,
+                                  score_kernel.smem_bytes(rows, h, w))
+
+
 @pytest.mark.parametrize(
-    "shape,rows", [((2, 400, 400), None), ((3, 37, 53), 7), ((2, 100, 100), None), ((2, 30, 40), 40)]
+    "shape,plan",
+    [
+        ((2, 400, 400), {}),  # vgg-F size: 8 blocks a map, 50-row bands
+        ((3, 37, 53), {"rows": 7, "cluster": 2}),  # W % 4 != 0; 3 bands a block
+        ((2, 100, 100), {}),  # vgg-Q size: one block a map
+        ((2, 30, 40), {"rows": 40}),
+        ((2, 100, 100), {"cluster": 4}),  # vgg-Q size in 4 blocks, 25-row bands
+        ((5, 12, 12), {}),  # H < 25: no interior row or column, float4 columns
+        ((2, 64, 50), {"cluster": 2}),  # W % 4 != 0 with interior columns
+    ],
 )
-def test_score_kernel_tiling_matches_plain(shape, rows):
+def test_score_kernel_tiling_matches_plain(shape, plan):
     rng = np.random.RandomState(2)
     maps = _noisy_maps(rng, *shape)
     n, h, w = shape
-    rows = rows or score_kernel.rows_per_block(h, w)
-    scored, count = _emulate_score_kernel(maps, rows)
+    scored, count = _emulate_score_kernel(maps, _plan(h, w, **plan))
     scored_p, count_p = score_kernel.score_maps_plain(torch.from_numpy(maps))
     np.testing.assert_array_equal(count, count_p.numpy())
     np.testing.assert_array_equal(scored, scored_p.numpy())
 
 
 def test_rows_per_block_fits_shared_memory():
-    assert score_kernel.rows_per_block(100, 100) == 25  # 4 blocks per vgg-Q map
-    assert score_kernel.rows_per_block(400, 400) == 16
-    assert score_kernel.rows_per_block(7, 53) == 7
-    for h, w in [(37, 53), (400, 400), (100, 1900)]:
-        rows = score_kernel.rows_per_block(h, w)
-        assert 1 <= rows <= h and (2 * rows + 28) * w * 4 <= 232448
+    plan = score_kernel.score_plan
+    assert plan(100, 100) == score_kernel.ScorePlan(100, 1, 1, 4, 80000)  # one block a vgg-Q map
+    assert plan(400, 400) == score_kernel.ScorePlan(50, 8, 8, 4, 204800)  # a cluster of 8
+    assert plan(7, 53) == score_kernel.ScorePlan(7, 1, 1, 1, 2968)
+    assert plan(100, 100, cluster=4) == score_kernel.ScorePlan(25, 4, 4, 4, 31200)
+    for h, w in [(37, 53), (400, 400), (100, 1900), (401, 399), (200, 1000), (3000, 400),
+                 (5, 300), (12, 12)]:
+        p = plan(h, w)
+        assert p.smem == score_kernel.smem_bytes(p.rows, h, w) <= 232448 - 128
+        assert (p.bands - 1) * p.rows < h <= p.bands * p.rows
+        assert 1 <= p.cluster <= min(8, p.bands) and w % p.vec == 0
+    assert plan(200, 1000).bands > plan(200, 1000).cluster  # blocks walk several bands
     with pytest.raises(ValueError):
-        score_kernel.rows_per_block(10, 4000)
+        plan(100, 4000)
+    with pytest.raises(ValueError):
+        plan(10, 10000)
+    with pytest.raises(ValueError):
+        plan(10, 50, vec=4)
+
+
+@pytest.mark.parametrize("w", [1, 25, 399, 1000, 1900, 1936])
+@pytest.mark.parametrize("h", [1, 26, 100, 2000])
+def test_score_plan_takes_every_width_up_to_1936(h, w):
+    """Every map up to 1,936 wide, which the kernel's first version took,
+    has a cut whose bands cover it and fit the shared memory; a band needs
+    its rows and 13 more above and below, and one row more each side
+    blurred."""
+    p = score_kernel.score_plan(h, w)
+    assert p.smem == 4 * w * (min(h, p.rows + 26) + min(h, p.rows + 2)) <= 232448 - 128
+    assert (p.bands - 1) * p.rows < h <= p.bands * p.rows
+    assert 1 <= p.cluster <= min(8, p.bands)
 
 
 def test_score_maps_dispatch_by_device():
