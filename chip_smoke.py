@@ -22,13 +22,14 @@ Phases, each ending with one JSON progress line on stdout:
    abs error must be <= 2e-3 and the identity exact;
 5. the evaluation path: load the vgg-Q r5 checkpoint and its YAML sidecar
    through the port, render the seed-99 64-frame 640x480 panda holdout in
-   memory, and run evaluate_frames in float32 (TF32 off for matmuls and
-   cuDNN); the score kernel's launch counter must have gone up, and the
+   memory, and run evaluate_frames in float32 (set in the loaded config
+   dict; the sidecar says bfloat16; TF32 off for matmuls and cuDNN); the
+   score kernel's launch counter must have gone up, and the
    metrics must meet bounds around
    trained_models/results_r5/eval_vggq_r5/analysis_results.txt (a bf16 TPU
    run, so exact equality is not expected);
-6. the training path: a vgg-Q network from the r5 sidecar with the port's
-   initial parameters (seed 0), 32 frames rendered at 640x480 (seed 0, not
+6. the training path: a float32 vgg-Q network from the r5 sidecar with the
+   port's initial parameters (seed 0), 32 frames rendered at 640x480 (seed 0, not
    the holdout), train_raw steps at batch 32 with augmentation and EMA on
    (the warp kernel must launch once a step, every loss be finite); then a
    short run on one fixed batch with augmentation off must end below its
@@ -56,13 +57,14 @@ Phases, each ending with one JSON progress line on stdout:
    that are not multiples of the 5x25 tile, Co that ends inside a 64- or
    128-channel tile, a partial third channel tile)
    (phase 11 adds the 19 links at B=16, the main path's batch);
-9. the int8 evaluation path on the phase-5 holdout, against three bf16 TPU
-   reports with phase 5's bounds: the float r4 vgg-Q
+9. the int8 evaluation path on the phase-5 holdout, in the sidecars'
+   bf16, against three bf16 TPU reports with phase 5's bounds: the float
+   r4 vgg-Q
    (trained_models/results_r4/eval_vggq_plain), the same checkpoint with
    int8_calibration_frames=32 (results_r5/eval_vggq_ptq), and the QAT
    checkpoint (its sidecar says quant_mode: qat) calibrated the same way
    (results_r5/eval_vggq_qat_int8); each int8 run must launch the conv
-   kernel 19 times a batch of 16 and the score kernel, and the PTQ belief
+   kernel 19 times a batch of 16 and the score kernel once, and the PTQ belief
    maps of one batch must correlate with the float maps at >= 0.99;
 10. two augmented train_raw steps of the QAT network at batch 32 from its
    checkpoint: finite losses, one warp launch a step;
@@ -76,12 +78,39 @@ Phases, each ending with one JSON progress line on stdout:
    loop; then a line with the conv kernel's limits at each link: its tile
    plan, ring stages, tiles and blocks launched, registers, spills and
    shared memory, and the share of the link's bound it reaches, and the
-   chain's TOP/s per map size (25, 50, 100, 200).
+   chain's TOP/s per map size (25, 50, 100, 200);
+12. vgg-Q r5 in its sidecar's bf16 on the holdout, against the r5 report
+   with phase 5's bounds;
+13. vgg-F r5 (trained_models/results_r5/vggf) on the holdout in bf16 and in
+   float32, each against results_r5/eval_vggf: in-frame found within 6,
+   out-of-frame found within 2, PCK AUC within 0.01, PnP at least 57/60,
+   ADD AUC within 0.03, the score kernel once a batch of 16 (its 400x400
+   maps); frames/s of a second evaluation loop; then three augmented
+   train_raw steps at batch 32 from the vgg-F sidecar in bf16 (port initial
+   parameters, seed 0): finite losses, one warp launch a step;
+14. ResNet-H and ResNet-F (ResNet-101, 400x400) from their committed
+   sidecars in bf16 with the port's initial parameters (`.chiprunignore`
+   leaves their checkpoints out of remote runs): from those, a fixed-batch run of six steps
+   ending below its first loss; then three augmented train_raw steps at
+   batch 32 (finite losses, one warp launch a step), every BatchNorm running
+   statistic moved by them and none by loss or inference, a save and reload through a
+   temporary directory giving bit-equal parameters and buffers and
+   identical maps, inference at batch 16 launching the score kernel once on
+   208x208 or 416x416 maps, and float32 maps of the same state correlating
+   with the bf16 maps at >= 0.99;
+15. the score kernel against its plain version at [112, 400, 400], [112,
+   208, 208] and [112, 416, 416] (phase 3's checks), and its device time
+   there (CUDA graph) against its bound;
+16. with CUDA events after warm-up, for vgg-Q, vgg-F, ResNet-H and ResNet-F
+   in float32 and bf16 (port initial parameters): the forward at B=16, the
+   augmented train_raw step at B=32 and its peak memory, and for bf16 one
+   step under torch.profiler (busy share, longest kernels).
 
 Then a line listing the kernels with their measurements (each row's ms and
 library_ms time the same work; the score and warp rows' ms is device time
-from a CUDA graph, and the warp's library_ms too; redesigned_in names the
-design the kernel now has), and as the last line
+from a CUDA graph, and the warp's library_ms too; the score row adds its
+device time at phase 15's shapes; redesigned_in names the design the kernel
+now has), and as the last line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
 before that line.  Without CUDA the script exits non-zero at once.
 """
@@ -106,6 +135,15 @@ R4_CHECKPOINT = os.path.join(ROOT, "trained_models/results_r4/vggq/dream_vgg_q_r
 R4_CONFIG = os.path.join(ROOT, "trained_models/results_r4/vggq/dream_vgg_q_r4.yaml")
 QAT_CHECKPOINT = os.path.join(ROOT, "trained_models/results_r5/vggq_qat/dream_vgg_q_qat_r5.msgpack")
 QAT_CONFIG = os.path.join(ROOT, "trained_models/results_r5/vggq_qat/dream_vgg_q_qat_r5.yaml")
+VGGF_CHECKPOINT = os.path.join(ROOT, "trained_models/results_r5/vggf/dream_vgg_f_r5.msgpack")
+VGGF_CONFIG = os.path.join(ROOT, "trained_models/results_r5/vggf/dream_vgg_f_r5.yaml")
+VGGF_REFERENCE = "trained_models/results_r5/eval_vggf/analysis_results.txt"
+# The ResNets' sidecars and map sizes; `.chiprunignore` leaves their
+# checkpoints out of remote runs, so they start from initial parameters.
+RESNETS = {
+    "resnet-H": (os.path.join(ROOT, "trained_models/results_r4/resnet_h/dream_resnet_h_r4.yaml"), 208),
+    "resnet-F": (os.path.join(ROOT, "trained_models/results_r5/resnetf/dream_resnet_f_r5.yaml"), 416),
+}
 INT8_REFERENCES = {
     "float_r4": "trained_models/results_r4/eval_vggq_plain/analysis_results.txt",
     "ptq_r4": "trained_models/results_r5/eval_vggq_ptq/analysis_results.txt",
@@ -346,9 +384,12 @@ def profile_busy(fn, top=5):
                             for e in longest]}
 
 
-def eval_bounds(result, ref):
+def eval_bounds(result, ref, outframe_tol=0, min_pnp=56):
     """The measured metrics of an evaluate_frames result and the bounds they
-    miss around a bf16 TPU reference report (empty when they meet them)."""
+    miss around a bf16 TPU reference report (empty when they meet them):
+    in-frame found within 6, out-of-frame found within ``outframe_tol``,
+    PCK AUC within 0.01, at least ``min_pnp`` PnP successes, ADD AUC within
+    0.03."""
     kp, pnp = result["keypoints"], result["pnp"]
     measured = {
         "inframe_found": [kp["num_found_gt_inframe"], kp["num_gt_inframe"]],
@@ -365,12 +406,14 @@ def eval_bounds(result, ref):
         failures.append("the rendered holdout's ground truth differs from the reference run's")
     if abs(kp["num_found_gt_inframe"] - ref["inframe_found"][0]) > 6:
         failures.append(f"in-frame found {kp['num_found_gt_inframe']} not within 6 of {ref['inframe_found'][0]}")
-    if kp["num_found_gt_outframe"] != ref["outframe_found"][0]:
-        failures.append(f"out-of-frame found {kp['num_found_gt_outframe']} != {ref['outframe_found'][0]}")
+    if abs(kp["num_found_gt_outframe"] - ref["outframe_found"][0]) > outframe_tol:
+        failures.append(f"out-of-frame found {kp['num_found_gt_outframe']} not within "
+                        f"{outframe_tol} of {ref['outframe_found'][0]}")
     if kp["l2_error_auc"] is None or abs(kp["l2_error_auc"] - ref["pck_auc"]) > 0.01:
         failures.append(f"PCK AUC {kp['l2_error_auc']} not within 0.01 of {ref['pck_auc']}")
-    if pnp["num_pnp_possible"] != ref["pnp_success"][1] or pnp["num_pnp_found"] < 56:
-        failures.append(f"PnP {pnp['num_pnp_found']}/{pnp['num_pnp_possible']} below 56/{ref['pnp_success'][1]}")
+    if pnp["num_pnp_possible"] != ref["pnp_success"][1] or pnp["num_pnp_found"] < min_pnp:
+        failures.append(f"PnP {pnp['num_pnp_found']}/{pnp['num_pnp_possible']} below "
+                        f"{min_pnp}/{ref['pnp_success'][1]}")
     if not np.isfinite(pnp["add_auc"]) or abs(pnp["add_auc"] - ref["add_auc"]) > 0.03:
         failures.append(f"ADD AUC {pnp['add_auc']} not within 0.03 of {ref['add_auc']}")
     return measured, failures
@@ -440,6 +483,44 @@ def restore(network, snap):
         network.ema_params[k].copy_(v)
 
 
+def config_in(config_path, compute_dtype=None):
+    """A sidecar's config, with ``compute_dtype`` set in the loaded dict
+    when given (the file's otherwise)."""
+    from dream_tpu_torch.utils.config import load_yaml
+
+    cfg = load_yaml(config_path)
+    if compute_dtype is not None:
+        cfg["architecture"]["compute_dtype"] = compute_dtype
+    return cfg
+
+
+def load_network(config_path, params_path=None, compute_dtype=None, seed=0):
+    """A network on the card from a sidecar (``compute_dtype`` as in
+    :func:`config_in`), with the committed weights when ``params_path`` is
+    given and the port's initial parameters from ``seed`` otherwise."""
+    from dream_tpu_torch.network import DreamNetwork
+
+    network = DreamNetwork(config_in(config_path, compute_dtype), device="cuda", seed=seed)
+    if params_path is not None:
+        network.load_network_params(params_path)
+    return network
+
+
+def processor_for(network, augment):
+    """The batch processor of ``network``'s sidecar (640x480 raw frames)."""
+    from dream_tpu_torch.data.dataset import make_batch_processor
+
+    tcfg = network.network_config["training"]["config"]
+    return make_batch_processor(
+        tuple(tcfg["image_raw_resolution"]), network.trained_net_input_resolution(),
+        network.trained_net_output_resolution(), network.image_preprocessing(),
+        network.image_normalization, augment=augment)
+
+
+def map_correlation(a, b):
+    return float(np.corrcoef(a.double().cpu().numpy().ravel(), b.double().cpu().numpy().ravel())[0, 1])
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -448,13 +529,12 @@ def main():
     from dream_tpu_torch.analysis import evaluate_frames
     from dream_tpu_torch.data.dataset import make_batch_processor
     from dream_tpu_torch.data.synthetic import generate_synthetic_frames
-    from dream_tpu_torch.network import DreamNetwork, create_network_from_config_file
+    from dream_tpu_torch.network import DreamNetwork, create_network_from_config_file, dtype_name
     from dream_tpu_torch.models.vgg_int8_deploy import chain_shapes, run_int8_chain
     from dream_tpu_torch.ops import cuda_build
     from dream_tpu_torch.ops.conv_int8 import conv3x3_int8_kernel, conv3x3_int8_plain, conv3x3_int32_plain
     from dream_tpu_torch.ops.score_kernel import score_maps_kernel, score_maps_plain
     from dream_tpu_torch.ops.warp import inverse_affines, warp_batch_kernel, warp_batch_plain
-    from dream_tpu_torch.utils.config import load_yaml
 
     kernels_of_port = {"score_kernel": score_maps_kernel, "warp_kernel": warp_batch_kernel,
                        "conv_int8_kernel": conv3x3_int8_kernel}
@@ -508,7 +588,7 @@ def main():
     print(f"allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
     t0 = time.perf_counter()
-    network = create_network_from_config_file(CONFIG, CHECKPOINT, device="cuda")
+    network = load_network(CONFIG, CHECKPOINT, "float32")
     load_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     holdout = generate_synthetic_frames(64, (640, 480), network.keypoint_names, seed=99)
@@ -539,7 +619,7 @@ def main():
     train_render_s = time.perf_counter() - t0
     raw = torch.from_numpy(frames["images"]).cuda()
     kp_raw = torch.from_numpy(frames["projections"]).float().cuda()
-    trainer = DreamNetwork(load_yaml(CONFIG), device="cuda", seed=0)
+    trainer = DreamNetwork(config_in(CONFIG, "float32"), device="cuda", seed=0)
     tcfg = trainer.network_config["training"]["config"]
     processor_args = (tuple(tcfg["image_raw_resolution"]), trainer.trained_net_input_resolution(),
                       trainer.trained_net_output_resolution(), trainer.image_preprocessing(),
@@ -714,8 +794,10 @@ def main():
     conv_cases["two-link chain 2x50x50x256->512->256"] = chain_diff
     progress("conv_int8_kernel_vs_plain", max_abs_err=conv_cases)
 
-    # 9. The int8 evaluation path on the phase-5 holdout.
-    def evaluate(net, name, calibration_frames):
+    # 9. The int8 evaluation path on the phase-5 holdout, in the sidecars'
+    # bf16 (the int8 chain's head and down1 prologue).
+    def evaluate(net, name, calibration_frames, reference=None, phase="int8_evaluation",
+                 outframe_tol=0, min_pnp=56):
         reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -724,10 +806,10 @@ def main():
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = {k: v.launches for k, v in kernels_of_port.items()}
-        ref = reference_metrics(os.path.join(ROOT, INT8_REFERENCES[name]))
-        measured, failures = eval_bounds(res, ref)
-        progress("int8_evaluation", run=name, seconds=round(seconds, 3), launches=launches,
-                 measured=measured,
+        ref = reference_metrics(os.path.join(ROOT, reference or INT8_REFERENCES[name]))
+        measured, failures = eval_bounds(res, ref, outframe_tol, min_pnp)
+        progress(phase, run=name, compute_dtype=dtype_name(net.compute_dtype),
+                 seconds=round(seconds, 3), launches=launches, measured=measured,
                  reference={k: list(v) if isinstance(v, tuple) else v for k, v in ref.items()})
         n_batches = -(-len(holdout["images"]) // 16)
         if calibration_frames and launches["conv_int8_kernel"] != 19 * n_batches:
@@ -735,21 +817,23 @@ def main():
                             f"not 19 for each of {n_batches} batches")
         if not calibration_frames and launches["conv_int8_kernel"] != 0:
             failures.append("the float evaluation launched the int8 conv kernel")
-        if launches["score_kernel"] <= 0:
-            failures.append("the evaluation did not launch the score kernel")
+        if launches["score_kernel"] != n_batches:
+            failures.append(f"the score kernel launched {launches['score_kernel']} times, "
+                            f"not once for each of {n_batches} batches")
         if failures:
             raise AssertionError(f"{name} evaluation misses its bounds: " + "; ".join(failures))
         return launches
 
     r4 = create_network_from_config_file(R4_CONFIG, R4_CHECKPOINT, device="cuda")
+    if r4.compute_dtype != torch.bfloat16:
+        raise AssertionError("the r4 sidecar's bfloat16 did not reach the network")
     evaluate(r4, "float_r4", 0)
     int8_launches = evaluate(r4, "ptq_r4", CALIBRATION_FRAMES)
     x16 = r4.preprocess(torch.from_numpy(holdout["images"][:16]))
     with torch.no_grad():
         float_maps = r4.model(x16.permute(0, 3, 1, 2))
     int8_maps = r4.inference(x16)[0]
-    corr = float(np.corrcoef(int8_maps.double().cpu().numpy().ravel(),
-                             float_maps.double().cpu().numpy().ravel())[0, 1])
+    corr = map_correlation(int8_maps, float_maps)
     if not corr >= 0.99:
         raise AssertionError(f"PTQ belief maps correlate with the float maps at {corr} (< 0.99)")
     progress("int8_fidelity", belief_map_correlation=corr)
@@ -796,6 +880,7 @@ def main():
     with torch.no_grad():
         int8_forward_ms = [cuda_ms(lambda: run_int8_chain(r4.int8_chain, x16), 5, warmup=2)
                            for _ in range(2)]
+        # The float model, in the sidecar's compute dtype.
         float_forward_ms = [cuda_ms(lambda: r4.model(x16.permute(0, 3, 1, 2)), 5, warmup=2)
                             for _ in range(2)]
         int8_forward_profile = profile_busy(lambda: run_int8_chain(r4.int8_chain, x16), top=8)
@@ -813,6 +898,7 @@ def main():
              link_tops=[2 * 9 * b * h * w * ci * co / ms / 1e9
                         for (b, h, w, ci, co, _), ms in zip(shapes16, link_ms)],
              int8_forward_b16_ms=int8_forward_ms, float_forward_b16_ms=float_forward_ms,
+             float_forward_dtype=dtype_name(r4.compute_dtype),
              int8_forward_b16_profile=int8_forward_profile,
              int8_eval_loop_s=int8_loop_s, int8_eval_loop_frames_per_s=64 / int8_loop_s)
 
@@ -835,6 +921,159 @@ def main():
              tops_by_map={f"{h}x{h}": ops / t / 1e9 for h, (ops, t) in sorted(by_map.items())},
              ms_by_map={f"{h}x{h}": t for h, (_, t) in sorted(by_map.items())})
 
+    # 12. vgg-Q r5 in its sidecar's bf16 on the phase-5 holdout.
+    vggq16 = create_network_from_config_file(CONFIG, CHECKPOINT, device="cuda")
+    if vggq16.compute_dtype != torch.bfloat16:
+        raise AssertionError("the r5 sidecar's bfloat16 did not reach the network")
+    evaluate(vggq16, "vgg-Q r5", 0, REFERENCE, phase="bf16_evaluation")
+    del vggq16
+
+    # 13. vgg-F r5 in bf16 and float32 against its report, then augmented
+    # train steps from its sidecar with the port's initial parameters.
+    vggf_loop_s = {}
+    for dtype in ("bfloat16", "float32"):
+        vggf = load_network(VGGF_CONFIG, VGGF_CHECKPOINT, dtype)
+        evaluate(vggf, f"vgg-F r5 {dtype}", 0, VGGF_REFERENCE, phase="vggf_evaluation",
+                 outframe_tol=2, min_pnp=57)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        evaluate_frames(vggf, holdout["images"], gt, holdout["camera_K"], batch_size=16)
+        torch.cuda.synchronize()
+        vggf_loop_s[dtype] = time.perf_counter() - t0
+        del vggf
+    vggf_trainer = load_network(VGGF_CONFIG, seed=0)
+    vggf_trainer.enable_fused_training(processor_for(vggf_trainer, augment=True))
+    reset_counts()
+    g = torch.Generator(device="cuda").manual_seed(13)
+    vggf_losses = [float(vggf_trainer.train_raw(g, raw, kp_raw)) for _ in range(AUGMENTED_STEPS)]
+    vggf_launches = {k: v.launches for k, v in kernels_of_port.items()}
+    if not all(np.isfinite(vggf_losses)):
+        raise AssertionError(f"non-finite vgg-F training loss: {vggf_losses}")
+    if vggf_launches["warp_kernel"] != AUGMENTED_STEPS:
+        raise AssertionError(f"the warp kernel launched {vggf_launches['warp_kernel']} times in "
+                             f"{AUGMENTED_STEPS} vgg-F steps")
+    progress("vggf_training", compute_dtype=dtype_name(vggf_trainer.compute_dtype),
+             losses=vggf_losses, launches=vggf_launches,
+             eval_loop_frames_per_s={k: 64 / v for k, v in vggf_loop_s.items()})
+    del vggf_trainer
+
+    # 14. ResNet-H and ResNet-F at full width from their sidecars (bf16),
+    # with the port's initial parameters.
+    x16_raw = torch.from_numpy(holdout["images"][:16])
+    for arch, (config, side) in RESNETS.items():
+        net = load_network(config, seed=0)
+        if net.compute_dtype != torch.bfloat16 or net.trained_net_output_resolution() != (side, side):
+            raise AssertionError(f"{arch}: {net.compute_dtype}, {net.trained_net_output_resolution()}")
+
+        def running():
+            return {k: v.clone() for k, v in net.model.state_dict().items() if "running_" in k}
+
+        # The fixed-batch run starts from the initial parameters: after a few
+        # augmented steps, the r5 recipe (Adam at 2e-4, no warmup) lifts
+        # ResNet-F's loss on a fixed batch for several steps before it
+        # falls, in float32 as in bf16, and in dream_tpu as in the port
+        # (tests/test_torch_arch_network.py, slow).
+        fixed = processor_for(net, augment=False)
+        net.enable_fused_training(fixed)
+        fixed_losses = [float(net.train_raw(None, raw, kp_raw)) for _ in range(FIXED_BATCH_STEPS)]
+        if not fixed_losses[-1] < fixed_losses[0]:
+            raise AssertionError(f"{arch}: the fixed-batch run did not lower the loss: {fixed_losses}")
+        net.enable_fused_training(processor_for(net, augment=True))
+        start = running()
+        reset_counts()
+        g = torch.Generator(device="cuda").manual_seed(14)
+        losses = [float(net.train_raw(g, raw, kp_raw)) for _ in range(AUGMENTED_STEPS)]
+        launches = {k: v.launches for k, v in kernels_of_port.items()}
+        if not all(np.isfinite(losses)) or launches["warp_kernel"] != AUGMENTED_STEPS:
+            raise AssertionError(f"{arch}: losses {losses}, launches {launches}")
+        trained = running()
+        unmoved = [k for k in start if torch.equal(start[k], trained[k])]
+        if unmoved:
+            raise AssertionError(f"{arch}: train steps left {len(unmoved)} running statistics as they were")
+        batch = fixed(None, raw[:16], kp_raw[:16])
+        eval_loss = float(net.loss([batch["image_rgb_input"]], batch["belief_maps"]))
+        x16 = net.preprocess(x16_raw)
+        net.inference(x16)
+        if any(not torch.equal(v, trained[k]) for k, v in running().items()):
+            raise AssertionError(f"{arch}: loss or inference moved the running statistics")
+
+        torch.backends.cudnn.deterministic = True
+        with tempfile.TemporaryDirectory() as tmp:
+            net.save_network(tmp, "smoke")
+            reloaded = create_network_from_config_file(
+                os.path.join(tmp, "smoke.yaml"), os.path.join(tmp, "smoke.msgpack"), device="cuda")
+        saved, back = net.model.state_dict(), reloaded.model.state_dict()
+        if set(saved) != set(back) or not all(torch.equal(saved[k], back[k]) for k in saved):
+            raise AssertionError(f"{arch}: the reloaded parameters or buffers differ")
+        if reloaded.compute_dtype != torch.bfloat16:
+            raise AssertionError(f"{arch}: the saved sidecar lost the compute dtype")
+        reset_counts()
+        belief, keypoints = net.inference(x16)
+        infer_launches = {k: v.launches for k, v in kernels_of_port.items()}
+        if not torch.equal(belief, reloaded.inference(x16)[0]):
+            raise AssertionError(f"{arch}: the reloaded network's belief maps differ")
+        torch.backends.cudnn.deterministic = False
+        del reloaded
+        if tuple(belief.shape) != (16, 7, side, side) or infer_launches["score_kernel"] != 1:
+            raise AssertionError(f"{arch}: maps {tuple(belief.shape)}, launches {infer_launches}")
+        net32 = DreamNetwork(config_in(config, "float32"), device="cuda")
+        net32.model.load_state_dict(saved, strict=True)
+        belief32, _ = net32.inference(x16)
+        corr = map_correlation(belief32, belief)
+        if not corr >= 0.99:
+            raise AssertionError(f"{arch}: float32 and bf16 maps correlate at {corr} (< 0.99)")
+        progress("resnet", arch=arch, compute_dtype=dtype_name(net.compute_dtype),
+                 augmented_losses=losses, launches=launches, eval_loss=eval_loss,
+                 running_statistics=len(start), fixed_batch_losses=fixed_losses,
+                 checkpoint_round_trip="bit-equal, parameters and buffers",
+                 inference_maps=list(belief.shape), inference_launches=infer_launches,
+                 keypoints_found=int((keypoints[..., 0] > -999).sum()),
+                 float32_vs_bf16_map_correlation=corr)
+        del net, net32, belief, belief32
+        torch.cuda.empty_cache()
+
+    # 15. The score kernel at this slice's map sizes: held against its plain
+    # version, and its device time against its bound.
+    score_shapes = {}
+    for n, h, w in ((112, 400, 400), (112, 208, 208), (112, 416, 416)):
+        shape_maps = random_maps(rng, n, h, w)
+        err, peaks = compare_kernel(shape_maps)
+        device_ms = [graph_ms(lambda: score_maps_kernel(shape_maps), 20) for _ in range(2)]
+        bound, bound_by = kernel_bound_ms(n, h, w)
+        score_shapes[f"{n}x{h}x{w}"] = {"max_abs_err": err, "peaks": peaks, "device_ms": device_ms,
+                                        "bound_ms": bound, "bound_by": bound_by,
+                                        "share_of_bound": bound / min(device_ms)}
+        score_err = max(score_err, err)
+        del shape_maps
+    progress("score_kernel_new_shapes", card=smi, shapes=score_shapes)
+
+    # 16. Forward and train-step times of the four networks in float32 and
+    # bf16 (port initial parameters), peak memory, and one bf16 step under
+    # torch.profiler.
+    arch_timings = {}
+    for arch, config in (("vgg-Q", CONFIG), ("vgg-F", VGGF_CONFIG), ("resnet-H", RESNETS["resnet-H"][0]),
+                         ("resnet-F", RESNETS["resnet-F"][0])):
+        for dtype in ("float32", "bfloat16"):
+            net = load_network(config, compute_dtype=dtype, seed=0)
+            x = net.preprocess(x16_raw).permute(0, 3, 1, 2)
+            with torch.no_grad():
+                forward_ms = cuda_ms(lambda: net.model(x), 3, warmup=2)
+            net.enable_fused_training(processor_for(net, augment=True))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            step_ms = cuda_ms(lambda: net.train_raw(generator, raw, kp_raw), 3, warmup=1)
+            row = {"forward_b16_ms": forward_ms, "train_step_b32_ms": step_ms,
+                   "train_images_per_s": TRAIN_BATCH / step_ms * 1e3,
+                   "train_peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+            if dtype == "bfloat16":
+                row["train_step_profile"] = profile_busy(
+                    lambda: net.train_raw(generator, raw, kp_raw), top=6)
+            arch_timings[f"{arch} {dtype}"] = row
+            del net, x
+            torch.cuda.empty_cache()
+    progress("architecture_timings", card=smi, batch_forward=16, batch_train=TRAIN_BATCH,
+             timings=arch_timings)
+
     kernels = [{
         "name": "score_kernel",
         "route": "cuda",
@@ -847,6 +1086,7 @@ def main():
         "bound_ms": score_bound,
         "bound_by": score_bound_by,
         "library_ms": None,
+        "device_ms_by_shape": {k: min(v["device_ms"]) for k, v in score_shapes.items()},
         "redesigned_in": "second design: banded blur in registers fused with the peak test",
     }, {
         "name": "warp_kernel",

@@ -10,9 +10,13 @@ sliced out of the file with ``np.frombuffer`` and never walked byte by byte,
 so a 44 MB checkpoint decodes in milliseconds.
 
 :func:`params_from_flax` then maps the flax tree onto a torch state dict:
-``a/b/kernel`` (HWIO) becomes ``a.b.weight`` (OIHW), ``bias`` stays
-``bias``, and float16 storage is widened to float32, as
-``DreamNetwork.load_network_params`` widens it on the JAX side.
+``a/b/kernel`` (HWIO) becomes ``a.b.weight`` (OIHW; a transposed conv's is
+flipped into torch's ``[in, out, kh, kw]``), BatchNorm's ``scale`` becomes
+``weight``, ``bias`` stays ``bias``, and float16 storage is widened to
+float32, as ``DreamNetwork.load_network_params`` widens it on the JAX side.
+:func:`batch_stats_from_flax` maps the ``batch_stats`` collection onto the
+BatchNorm buffers, and :func:`state_from_flax` / :func:`state_to_flax` carry
+a whole model (parameters and running statistics) across.
 
 :func:`quant_from_flax` and :func:`quant_to_flax` carry the calibration
 state across in the same way: the flax ``quant`` collection
@@ -30,7 +34,7 @@ the port saved.
 from __future__ import annotations
 
 import struct
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -173,13 +177,22 @@ def load_flax_checkpoint(path: str) -> Any:
         return msgpack_restore(f.read())
 
 
+def _is_transposed(path: str) -> bool:
+    """Both packages name every ``TorchConvTranspose`` ``deconv``
+    (``_DeconvBlock``, ``_DeconvBNRelu``); no other conv has that name."""
+    return path.rstrip(".").rsplit(".", 1)[-1] == "deconv"
+
+
 def params_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """Map a flax parameter tree onto a torch ``state_dict``.
 
     Accepts the whole variables tree (``{"params": {...}}``) or the params
-    subtree.  Conv ``kernel`` leaves go from HWIO to OIHW as ``weight``;
-    ``bias`` leaves keep their name.  Every leaf becomes a contiguous
-    float32 CPU tensor.
+    subtree.  Conv ``kernel`` leaves go from HWIO to OIHW as ``weight``; a
+    transposed conv's (module ``deconv``) becomes ``[in, out, kh, kw]`` with
+    its taps flipped, ``K.flip(0, 1).permute(2, 3, 0, 1)``
+    (``layers.TorchConvTranspose``); BatchNorm's ``scale`` becomes
+    ``weight``; ``bias`` leaves keep their name.  Every leaf becomes a
+    contiguous float32 CPU tensor (float16 storage widens).
     """
     params = tree["params"] if "params" in tree else tree
     state: Dict[str, torch.Tensor] = {}
@@ -191,11 +204,14 @@ def params_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
                 continue
             arr = np.asarray(leaf).astype(np.float32)
             if name == "kernel" and arr.ndim == 4:
-                state[prefix + "weight"] = torch.from_numpy(
-                    np.ascontiguousarray(arr.transpose(3, 2, 0, 1))
-                )
-            elif name == "bias" and arr.ndim == 1:
-                state[prefix + "bias"] = torch.from_numpy(np.ascontiguousarray(arr))
+                if _is_transposed(prefix):
+                    arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)
+                else:
+                    arr = arr.transpose(3, 2, 0, 1)
+                state[prefix + "weight"] = torch.from_numpy(np.ascontiguousarray(arr))
+            elif name in ("bias", "scale") and arr.ndim == 1:
+                leaf_name = "weight" if name == "scale" else "bias"
+                state[prefix + leaf_name] = torch.from_numpy(np.ascontiguousarray(arr))
             else:
                 raise ValueError(
                     f"flax leaf {prefix}{name} {arr.shape} has no torch "
@@ -206,27 +222,100 @@ def params_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return state
 
 
+def _set(tree: Dict[str, Any], path: Sequence[str], leaf: str, arr: np.ndarray) -> None:
+    node = tree
+    for part in path:
+        node = node.setdefault(part, {})
+    node[leaf] = arr
+
+
 def params_to_flax(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-    """Map a torch ``state_dict`` onto the flax variables tree.
+    """Map a torch ``state_dict`` of parameters onto the flax variables tree.
 
     The inverse of :func:`params_from_flax`: ``a.b.weight`` (OIHW) becomes
-    ``a/b/kernel`` (HWIO), ``bias`` keeps its name, every leaf a C-order
-    float32 numpy array; returns ``{"params": {...}}``.
+    ``a/b/kernel`` (HWIO; a transposed conv's ``[in, out, kh, kw]`` flipped
+    back), a 1-D ``weight`` BatchNorm's ``scale``, ``bias`` keeps its name,
+    every leaf a C-order float32 numpy array; returns ``{"params": {...}}``.
+    Buffers belong to :func:`batch_stats_to_flax`.
     """
     params: Dict[str, Any] = {}
     for name, tensor in state.items():
         *path, leaf = name.split(".")
         arr = tensor.detach().to("cpu", torch.float32).numpy()
-        node = params
-        for part in path:
-            node = node.setdefault(part, {})
         if leaf == "weight" and arr.ndim == 4:
-            node["kernel"] = np.ascontiguousarray(arr.transpose(2, 3, 1, 0))
-        elif leaf == "bias" and arr.ndim == 1:
-            node["bias"] = np.ascontiguousarray(arr)
+            if _is_transposed(name.rsplit(".", 1)[0]):
+                arr = arr.transpose(2, 3, 0, 1)[::-1, ::-1]
+            else:
+                arr = arr.transpose(2, 3, 1, 0)
+            _set(params, path, "kernel", np.ascontiguousarray(arr))
+        elif leaf in ("weight", "bias") and arr.ndim == 1:
+            _set(params, path, "scale" if leaf == "weight" else "bias", np.ascontiguousarray(arr))
         else:
             raise ValueError(f"torch leaf {name} {tuple(arr.shape)} has no flax counterpart")
     return {"params": params}
+
+
+# flax's batch_stats leaves and the BatchNorm buffers they become.
+_BATCH_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def is_batch_stat(name: str) -> bool:
+    """Whether a state-dict key is a BatchNorm running statistic."""
+    return name.rsplit(".", 1)[-1] in _BATCH_STATS.values()
+
+
+def batch_stats_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Map a flax ``batch_stats`` collection (or a variables tree holding
+    one) onto the BatchNorm buffers: ``a/bn/mean`` and ``a/bn/var`` become
+    ``a.bn.running_mean`` and ``a.bn.running_var``, float32 (float16
+    storage widens)."""
+    stats = tree["batch_stats"] if "batch_stats" in tree else tree
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(node: Dict[str, Any], prefix: str):
+        for name, leaf in node.items():
+            if isinstance(leaf, dict):
+                walk(leaf, f"{prefix}{name}.")
+            elif name in _BATCH_STATS and np.ndim(leaf) == 1:
+                out[prefix + _BATCH_STATS[name]] = torch.from_numpy(
+                    np.ascontiguousarray(np.asarray(leaf).astype(np.float32)))
+            else:
+                raise ValueError(f"flax batch_stats leaf {prefix}{name} has no torch counterpart")
+
+    walk(stats, "")
+    return out
+
+
+def batch_stats_to_flax(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of :func:`batch_stats_from_flax` over the running
+    statistics in ``state`` (other keys are ignored): the ``batch_stats``
+    collection, float32."""
+    names = {v: k for k, v in _BATCH_STATS.items()}
+    stats: Dict[str, Any] = {}
+    for name, tensor in state.items():
+        if is_batch_stat(name):
+            *path, leaf = name.split(".")
+            _set(stats, path, names[leaf], tensor.detach().to("cpu", torch.float32).numpy().copy())
+    return stats
+
+
+def state_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A whole variables tree -> a model's ``state_dict``: the parameters
+    and, where the tree has them, the BatchNorm running statistics."""
+    state = params_from_flax(tree)
+    if "batch_stats" in tree:
+        state.update(batch_stats_from_flax(tree["batch_stats"]))
+    return state
+
+
+def state_to_flax(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """A model's ``state_dict`` -> the variables tree ``dream_tpu`` saves:
+    ``{"params"}``, plus ``{"batch_stats"}`` when the model has BatchNorm
+    (``dream_tpu/network.py:1107-1114``)."""
+    tree = params_to_flax({k: v for k, v in state.items() if not is_batch_stat(k)})
+    if any(is_batch_stat(k) for k in state):
+        tree["batch_stats"] = batch_stats_to_flax(state)
+    return tree
 
 
 def quant_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -253,10 +342,7 @@ def quant_to_flax(qvars: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     each amax a 0-d float32 numpy array."""
     quant: Dict[str, Any] = {}
     for name, amax in qvars.items():
-        node = quant
-        for part in name.split("."):
-            node = node.setdefault(part, {})
-        node["act_amax"] = np.asarray(amax.detach().to("cpu", torch.float32).numpy())
+        _set(quant, name.split("."), "act_amax", np.asarray(amax.detach().to("cpu", torch.float32).numpy()))
     return quant
 
 

@@ -1,3 +1,4 @@
-"""torch model zoo of the port (vgg-Q hourglass so far)."""
+"""torch model zoo of the port: the vgg hourglasses and ResnetSimple."""
 
-from dream_tpu_torch.models.hourglass import DreamHourglass
+from dream_tpu_torch.models.hourglass import DreamHourglass, DreamHourglassMultiStage
+from dream_tpu_torch.models.resnet_simple import ResnetSimple

@@ -1,45 +1,61 @@
-"""DreamHourglass with the upsample decoder (vgg-Q), in NCHW.
+"""DreamHourglass and DreamHourglassMultiStage, in NCHW.
 
-Port of ``dream_tpu/models/hourglass.py:142-220`` for the configuration on
-the port's main path: a VGG19-style encoder in five down blocks with 2x2
-floor max-pools between them, two nearest-x2 upsample blocks, and a
-64 -> 32 -> n_keypoints belief head, giving quarter-resolution belief maps.
-Submodules carry the flax tree's names (``down1.conv0``,
-``upsample4.conv1``, ``head.conv2``), so ``checkpoint.params_from_flax``
-output loads with ``load_state_dict(strict=True)``.  Parameters start
-from flax's distributions (``layers.init_conv_``), drawn in the order of
-the modules from an explicit generator.  The skip, deconv, full-output,
-multistage and soft-argmax variants are not ported yet.
+Port of ``dream_tpu/models/hourglass.py``: a VGG19-style encoder in five
+down blocks with 2x2 floor max-pools between them, then either the
+upsample decoder (nearest x2 + convs: quarter resolution, vgg-Q; or full
+resolution with ``full_output``) or the transposed-conv decoder (full
+resolution, ``deconv_decoder``: vgg-F), optional additive skip
+connections, and a 64 -> 32 -> n_keypoints belief head.  The multistage
+model chains hourglasses, each later stage taking the image concatenated
+with the previous stage's maps.
+
+Every block computes in the compute ``dtype`` (float32 or bfloat16, flax's
+rule, ``layers.conv_in_dtype``): the input is cast to it and the belief maps
+return as float32.  Submodules carry the flax tree's names
+(``down1.conv0``, ``deconv4.deconv``, ``stage2.upsample4.conv1``), so
+``checkpoint.params_from_flax`` output loads with
+``load_state_dict(strict=True)``.  Parameters start from flax's
+distributions (``layers.init_module_``), drawn in module order from an
+explicit generator.  The soft-argmax head is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dream_tpu_torch.models.layers import conv3x3, init_conv_, max_pool_torch, upsample_nearest
+from dream_tpu_torch.models.layers import (
+    TorchConvTranspose,
+    conv3x3,
+    init_module_,
+    max_pool_torch,
+    upsample_nearest,
+)
 from dream_tpu_torch.models.quant import QuantConv2d
 
 
-def _conv3x3(in_channels: int, features: int, quant_mode: Optional[str]) -> QuantConv2d:
+def _conv3x3(in_channels: int, features: int, dtype: torch.dtype,
+             quant_mode: Optional[str]) -> QuantConv2d:
     """A quantizable 3x3 conv: ``qat`` under QAT, a plain conv otherwise
     until calibration switches it (``dream_tpu/models/hourglass.py:36-41``)."""
-    return QuantConv2d(in_channels, features, mode="qat" if quant_mode == "qat" else "float")
+    return QuantConv2d(in_channels, features, mode="qat" if quant_mode == "qat" else "float",
+                       dtype=dtype)
 
 
 class _VggDownBlock(nn.Module):
     """n_convs x (3x3 conv + ReLU)."""
 
-    def __init__(self, in_channels: int, features: int, n_convs: int,
+    def __init__(self, in_channels: int, features: int, n_convs: int, dtype: torch.dtype,
                  quant_mode: Optional[str] = None):
         super().__init__()
         self.n_convs = n_convs
         for i in range(n_convs):
             self.add_module(
-                f"conv{i}", _conv3x3(in_channels if i == 0 else features, features, quant_mode)
+                f"conv{i}",
+                _conv3x3(in_channels if i == 0 else features, features, dtype, quant_mode),
             )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -48,78 +64,180 @@ class _VggDownBlock(nn.Module):
         return x
 
 
+class _DeconvBlock(nn.Module):
+    """ConvTranspose(k3, s2, p1, op1) + ReLU [+ 3x3 conv + ReLU]
+    (``dream_tpu/models/hourglass.py:61-82``)."""
+
+    def __init__(self, in_channels: int, features: int, dtype: torch.dtype, with_conv: bool = True):
+        super().__init__()
+        self.deconv = TorchConvTranspose(in_channels, features, 3, stride=2, padding=1,
+                                         output_padding=1, dtype=dtype)
+        self.conv = conv3x3(features, features, dtype) if with_conv else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.relu(self.deconv(x))
+        return F.relu(self.conv(x)) if self.conv is not None else x
+
+
 class _UpsampleBlock(nn.Module):
     """Nearest x2, conv + ReLU, conv: no trailing ReLU, as the reference
     (reference dream/models.py:690-710)."""
 
-    def __init__(self, in_channels: int, mid_features: int, out_features: int,
+    def __init__(self, in_channels: int, mid_features: int, out_features: int, dtype: torch.dtype,
                  quant_mode: Optional[str] = None):
         super().__init__()
-        self.conv0 = _conv3x3(in_channels, mid_features, quant_mode)
-        self.conv1 = _conv3x3(mid_features, out_features, quant_mode)
+        self.conv0 = _conv3x3(in_channels, mid_features, dtype, quant_mode)
+        self.conv1 = _conv3x3(mid_features, out_features, dtype, quant_mode)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = upsample_nearest(x, 2)
         return self.conv1(F.relu(self.conv0(x)))
 
 
+class _UpsampleBlockFull(nn.Module):
+    """Nearest x2 + (conv + ReLU) x2, the full-output decoder's blocks
+    (``dream_tpu/models/hourglass.py:101-121``)."""
+
+    def __init__(self, in_channels: int, features: int, dtype: torch.dtype,
+                 quant_mode: Optional[str] = None):
+        super().__init__()
+        self.conv0 = _conv3x3(in_channels, features, dtype, quant_mode)
+        self.conv1 = _conv3x3(features, features, dtype, quant_mode)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = upsample_nearest(x, 2)
+        return F.relu(self.conv1(F.relu(self.conv0(x))))
+
+
 class _BeliefHead(nn.Module):
     """64 -> 64 -> 32 -> n_keypoints belief head (reference dream/models.py:736-747).
     conv2, the belief-map output layer, is never quantized: the peak decoder
-    reads its output at subpixel resolution."""
+    reads its output at subpixel resolution.  The maps return in float32."""
 
-    def __init__(self, n_keypoints: int, quant_mode: Optional[str] = None):
+    def __init__(self, n_keypoints: int, dtype: torch.dtype, quant_mode: Optional[str] = None):
         super().__init__()
-        self.conv0 = _conv3x3(64, 64, quant_mode)
-        self.conv1 = _conv3x3(64, 32, quant_mode)
-        self.conv2 = conv3x3(32, n_keypoints)
+        self.conv0 = _conv3x3(64, 64, dtype, quant_mode)
+        self.conv1 = _conv3x3(64, 32, dtype, quant_mode)
+        self.conv2 = conv3x3(32, n_keypoints, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.relu(self.conv0(x))
         x = F.relu(self.conv1(x))
-        return self.conv2(x)
+        return self.conv2(x).to(torch.float32)
 
 
 class DreamHourglass(nn.Module):
-    """Single-stage hourglass belief-map regressor, upsample decoder.
+    """Single-stage hourglass belief-map regressor.
 
     Input ``[B, n_image_input_channels, H, W]``; output ``[B, n_keypoints,
-    (H//16)*4, (W//16)*4]`` float32 belief maps.  ``generator`` seeds the
-    initial parameters (the global CPU generator if None).  ``quant_mode``
-    ``"qat"`` fake-quantizes every conv but ``head.conv2``
+    h, w]`` float32 belief maps, ``h = (H//16)*4`` with the upsample decoder
+    and ``(H//16)*16`` with the deconv or full-output one.  ``generator``
+    seeds the initial parameters (the global CPU generator if None);
+    ``dtype`` is the compute dtype.  ``quant_mode`` ``"qat"`` fake-quantizes
+    every quantizable conv but ``head.conv2``
     (:class:`~dream_tpu_torch.models.quant.QuantConv2d`); None runs them
-    as plain convs.
+    as plain convs.  The transposed convs of the deconv decoder are never
+    quantizable, as in the reference.
     """
 
     def __init__(self, n_keypoints: int, n_image_input_channels: int = 3,
-                 generator: Optional[torch.Generator] = None, quant_mode: Optional[str] = None):
+                 generator: Optional[torch.Generator] = None, quant_mode: Optional[str] = None,
+                 skip_connections: bool = False, deconv_decoder: bool = False,
+                 full_output: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         if quant_mode not in (None, "qat"):
             raise ValueError(f'quant_mode must be None or "qat", got {quant_mode!r}')
         self.n_keypoints = n_keypoints
         self.n_image_input_channels = n_image_input_channels
-        q = quant_mode
-        self.down1 = _VggDownBlock(n_image_input_channels, 64, 2, q)
-        self.down2 = _VggDownBlock(64, 128, 2, q)
-        self.down3 = _VggDownBlock(128, 256, 4, q)
-        self.down4 = _VggDownBlock(256, 512, 4, q)
-        self.down5 = _VggDownBlock(512, 512, 4, q)
-        self.upsample4 = _UpsampleBlock(512, 256, 256, q)
-        self.upsample3 = _UpsampleBlock(256, 128, 64, q)
-        self.head = _BeliefHead(n_keypoints, q)
+        self.skip_connections = skip_connections
+        self.deconv_decoder = deconv_decoder
+        self.full_output = full_output
+        self.dtype = dtype
+        q, d = quant_mode, dtype
+        self.down1 = _VggDownBlock(n_image_input_channels, 64, 2, d, q)
+        self.down2 = _VggDownBlock(64, 128, 2, d, q)
+        self.down3 = _VggDownBlock(128, 256, 4, d, q)
+        self.down4 = _VggDownBlock(256, 512, 4, d, q)
+        self.down5 = _VggDownBlock(512, 512, 4, d, q)
+        if deconv_decoder:
+            self.deconv4 = _DeconvBlock(512, 256, d)
+            self.deconv3 = _DeconvBlock(256, 128, d)
+            self.deconv2 = _DeconvBlock(128, 64, d)
+            self.deconv1 = _DeconvBlock(64, 64, d, with_conv=False)
+        else:
+            self.upsample4 = _UpsampleBlock(512, 256, 256, d, q)
+            self.upsample3 = _UpsampleBlock(256, 128, 64, d, q)
+            if full_output:
+                self.upsample2 = _UpsampleBlockFull(64, 64, d, q)
+                self.upsample1 = _UpsampleBlockFull(64, 64, d, q)
+        self.head = _BeliefHead(n_keypoints, d, q)
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
-        """Redraw every conv as flax's ``nn.Conv`` defaults, in module order."""
-        for module in self.modules():
-            if isinstance(module, nn.Conv2d):
-                init_conv_(module, generator)
+        """Redraw every conv with flax's defaults, in module order."""
+        init_module_(self, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.down1(x)
-        x = self.down2(max_pool_torch(x))
-        x = self.down3(max_pool_torch(x))
-        x = self.down4(max_pool_torch(x))
-        x = self.down5(max_pool_torch(x))
-        y = self.upsample3(self.upsample4(x))
+        skip = self.skip_connections
+        x_0_1 = self.down1(x.to(self.dtype))
+        x_0_1_d = max_pool_torch(x_0_1)
+        x_0_2_d = max_pool_torch(self.down2(x_0_1_d))
+        x_0_3_d = max_pool_torch(self.down3(x_0_2_d))
+        x_0_4_d = max_pool_torch(self.down4(x_0_3_d))
+        x_0_5 = self.down5(x_0_4_d)
+        y = x_0_5 + x_0_4_d if skip else x_0_5
+        if self.deconv_decoder:
+            y = self.deconv4(y)
+            y = self.deconv3(y + x_0_3_d if skip else y)
+            y = self.deconv2(y + x_0_2_d if skip else y)
+            y = self.deconv1(y + x_0_1_d if skip else y)
+            y = y + x_0_1 if skip else y
+        else:
+            y = self.upsample4(y)
+            y = self.upsample3(y + x_0_3_d if skip else y)
+            if self.full_output:
+                y = self.upsample1(self.upsample2(y))
         return self.head(y)
+
+
+class DreamHourglassMultiStage(nn.Module):
+    """1-6 chained hourglasses, ``stage1`` to ``stageN``
+    (``dream_tpu/models/hourglass.py:223-275``).
+
+    Later stages take ``cat([image, previous maps])`` on the channel axis,
+    the maps nearest-x4 upsampled to the input's size unless the decoder is
+    deconv or full-output.  Returns the list of the stages' float32 maps,
+    last stage last.
+    """
+
+    def __init__(self, n_keypoints: int, n_stages: int = 2, n_image_input_channels: int = 3,
+                 generator: Optional[torch.Generator] = None, quant_mode: Optional[str] = None,
+                 skip_connections: bool = False, deconv_decoder: bool = False,
+                 full_output: bool = False, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if not 1 <= n_stages <= 6:
+            raise ValueError("DreamHourglassMultiStage supports 1 to 6 stages.")
+        self.n_stages = n_stages
+        self.upsample_previous = not (deconv_decoder or full_output)
+        for stage in range(n_stages):
+            channels = n_image_input_channels + (n_keypoints if stage else 0)
+            # Each stage draws from ``generator`` in turn: module order.
+            self.add_module(f"stage{stage + 1}", DreamHourglass(
+                n_keypoints, channels, generator=generator, quant_mode=quant_mode,
+                skip_connections=skip_connections, deconv_decoder=deconv_decoder,
+                full_output=full_output, dtype=dtype,
+            ))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        init_module_(self, generator)
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        outputs: List[torch.Tensor] = []
+        for stage in range(self.n_stages):
+            if stage == 0:
+                stage_in = x
+            else:
+                prev = upsample_nearest(outputs[-1], 4) if self.upsample_previous else outputs[-1]
+                stage_in = torch.cat([x, prev], dim=1)
+            outputs.append(getattr(self, f"stage{stage + 1}")(stage_in))
+        return outputs

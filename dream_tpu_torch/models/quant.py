@@ -8,7 +8,8 @@ Port of the vgg part of ``dream_tpu/models/quant.py``:
 - activations: per tensor, symmetric, from a calibrated ``act_amax``
   (:func:`quantize_activations`, ``:84-87``);
 - :class:`QuantConv2d`, a 3x3 conv whose parameters are ``nn.Conv2d``'s (so
-  every checkpoint loads unchanged) with the modes of ``QuantConv``
+  every checkpoint loads unchanged), computing in the compute dtype, with
+  the modes of ``QuantConv``
   (``:104-165``): ``float`` (a plain conv), ``calibrate`` (a plain conv that
   records ``act_amax = max(act_amax, max|x|)`` of its input) and ``qat``
   (quantization-aware training: weights per channel and activations by the
@@ -29,6 +30,8 @@ from typing import Dict, Iterable, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from dream_tpu_torch.models.layers import Conv2d
 
 QUANT_MODES = ("float", "calibrate", "qat")
 
@@ -63,17 +66,21 @@ def quantize_activations(x: torch.Tensor, amax: torch.Tensor) -> Tuple[torch.Ten
     return x_q.to(torch.int8), s_x
 
 
-class QuantConv2d(nn.Conv2d):
+class QuantConv2d(Conv2d):
     """3x3 stride-1 pad-1 conv with the ``float``/``calibrate``/``qat`` modes.
 
     ``act_amax`` is a non-persistent buffer, so state dicts hold the
     parameters alone, as the flax ``params`` collection does; the
     calibrated values travel as their own dict (:func:`calibrate`,
-    ``checkpoint.quant_from_flax``).
+    ``checkpoint.quant_from_flax``).  Every mode returns the compute
+    ``dtype``: ``float`` and ``calibrate`` convolve in it, ``qat``
+    contracts its fake-quantized operands in float32 and casts the result
+    (``dream_tpu/models/quant.py:104-135``).
     """
 
-    def __init__(self, in_channels: int, out_channels: int, mode: str = "float"):
-        super().__init__(in_channels, out_channels, kernel_size=3, stride=1, padding=1)
+    def __init__(self, in_channels: int, out_channels: int, mode: str = "float",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_channels, out_channels, 3, stride=1, padding=1, dtype=dtype)
         self.mode = mode
         self.register_buffer("act_amax", torch.zeros((), dtype=torch.float32), persistent=False)
 
@@ -92,7 +99,7 @@ class QuantConv2d(nn.Conv2d):
         s_x = torch.clamp_min(x32.detach().abs().amax(), 1e-12) / 127.0
         x_q = _clip(ste_round(x32 / s_x), -127.0, 127.0)
         y = F.conv2d(x_q, w_q, padding=1) * (s_x * s_w)[None, :, None, None]
-        return y + self.bias.to(torch.float32)[None, :, None, None]
+        return (y + self.bias.to(torch.float32)[None, :, None, None]).to(self.compute_dtype)
 
 
 @torch.no_grad()

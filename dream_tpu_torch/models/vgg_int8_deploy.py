@@ -93,11 +93,18 @@ class Int8Chain(NamedTuple):
 
 
 def supports(model) -> bool:
-    """The chain covers the single-stage upsample-decoder hourglass with a
-    3-channel input (vgg-Q), the port's only hourglass."""
+    """The chain covers the single-stage upsample-decoder hourglass (vgg-Q:
+    quarter-resolution decoder, no skips, no full output, a 3-channel
+    input), as ``vgg_int8_deploy.supports`` (``:130-142``)."""
     from dream_tpu_torch.models.hourglass import DreamHourglass
 
-    return isinstance(model, DreamHourglass) and model.n_image_input_channels == 3
+    return (
+        isinstance(model, DreamHourglass)
+        and not model.deconv_decoder
+        and not model.full_output
+        and not model.skip_connections
+        and model.n_image_input_channels == 3
+    )
 
 
 def chain_shapes(batch: int, size: int = 400, n_keypoints: int = 7):

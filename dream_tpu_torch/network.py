@@ -1,16 +1,17 @@
 """DreamNetwork: the config-driven facade of the port, inference and training.
 
-Port of ``dream_tpu/network.py`` for the vgg-Q configuration: build the
-model from a self-describing YAML config, load and save flax msgpack
-weights with their YAML sidecar, run ``image -> (belief_maps, keypoints)``
-on one device, and train: the belief-map criteria (``:70-118``), the
+Port of ``dream_tpu/network.py``: build the model a self-describing YAML
+config names (``:197-264``: the vgg hourglasses, single- or multistage, and
+ResNet-H/F), load and save flax msgpack weights with their YAML sidecar,
+run ``image -> (belief_maps, keypoints)`` on one device, and train: the
+belief-map criteria (``:70-118``), the multistage loss (``:373-392``), the
 optimizer with its schedule and global-norm clipping (``:394-435``), the
-train steps (``:437``, ``:534-580``, ``:659-687``), the EMA (``:512-532``)
-and the evaluation loss (``:689``); quantization-aware training
-(``quant_mode: qat``, ``:190-200``) and int8 inference of vgg-Q
-(``enable_int8_inference``, ``:796-969``).  The model computes in float32:
-a config's ``compute_dtype`` bfloat16 is not ported yet, so such a config
-warns, ``compute_dtype`` says float32, and a saved sidecar says so too.
+train steps with BatchNorm's running statistics (``:437-460``), the EMA
+(``:512-532``) and the evaluation loss; quantization-aware training of the
+vgg hourglasses (``quant_mode: qat``) and int8 inference of vgg-Q
+(``enable_int8_inference``, ``:796-969``).  The model computes in the
+config's ``compute_dtype``, float32 or bfloat16, with float32 parameters,
+as the JAX package does.  The soft-argmax head is not ported yet.
 Peak decoding runs in the CUDA score kernel, the augmentation's warp in
 the CUDA warp kernel and the int8 chain's convs in the CUDA int8 conv
 kernel for CUDA tensors, and in their plain torch versions for CPU
@@ -25,7 +26,6 @@ from __future__ import annotations
 import copy
 import math
 import os
-import warnings
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -33,11 +33,11 @@ import torch
 
 from dream_tpu_torch.checkpoint import (
     load_flax_checkpoint,
-    params_from_flax,
-    params_to_flax,
     save_flax_checkpoint,
+    state_from_flax,
+    state_to_flax,
 )
-from dream_tpu_torch.models import DreamHourglass
+from dream_tpu_torch.models import DreamHourglass, DreamHourglassMultiStage, ResnetSimple
 from dream_tpu_torch.models import quant as quant_ops
 from dream_tpu_torch.models import vgg_int8_deploy
 from dream_tpu_torch.ops import belief_maps as bm_ops
@@ -47,6 +47,8 @@ from dream_tpu_torch.utils import resolutions as res_utils
 from dream_tpu_torch.utils.config import load_yaml, save_yaml
 
 KNOWN_OPTIMIZERS = ["adam", "sgd"]  # reference dream/network.py:23-26
+KNOWN_ARCHITECTURES = ["vgg", "resnet"]
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def dtype_name(dtype: torch.dtype) -> str:
@@ -150,7 +152,7 @@ def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float) -> torc
 
 
 class DreamNetwork:
-    """Config-validated vgg-Q model + decode + coordinate maps + training."""
+    """Config-validated model + decode + coordinate maps + training."""
 
     def __init__(self, network_config: Dict[str, Any], device: Any = "cuda", seed: int = 0):
         self.device = resolve_device(device)
@@ -164,18 +166,17 @@ class DreamNetwork:
         self.keypoint_names: List[str] = [kp["name"] for kp in manip["keypoints"]]
         self.n_keypoints = len(self.keypoint_names)
         self.architecture_type = arch["type"]
+        if self.architecture_type not in KNOWN_ARCHITECTURES:
+            raise ValueError(f'Architecture type "{self.architecture_type}" is not recognized.')
         self.image_normalization = arch["image_normalization"]
         if self.image_preprocessing() not in res_utils.KNOWN_IMAGE_PREPROC_TYPES:
             raise ValueError(f'Image preprocessing type "{self.image_preprocessing()}" is not recognized.')
         if arch["input_heads"][0] != "image_rgb":
             raise ValueError('First input head must be "image_rgb".')
-        unported = [k for k in ("spatial_softmax", "deconv_decoder", "full_output",
-                                "skip_connections", "n_stages") if k in arch]
-        if self.architecture_type != "vgg" or arch["output_heads"] != ["belief_maps"] or unported:
+        if "spatial_softmax" in arch or arch["output_heads"] != ["belief_maps"]:
             raise NotImplementedError(
-                "the port runs the vgg upsample-decoder hourglass (vgg-Q) only so far; "
-                f"got type={self.architecture_type} output_heads={arch['output_heads']} "
-                f"options={unported}"
+                "the port has no soft-argmax head yet; "
+                f"got output_heads={arch['output_heads']}"
             )
         # QAT fake-quantizes the training graph; calibrate/int8 are driven by
         # enable_int8_inference (dream_tpu/network.py:190-200).
@@ -184,25 +185,48 @@ class DreamNetwork:
             raise NotImplementedError(
                 f'architecture "quant_mode" must be null or "qat", got {self.quant_mode!r}'
             )
-        # The dtype the model runs in: float32 (bf16 compute is not ported).
-        self.compute_dtype = torch.float32
-        requested = arch.get("compute_dtype", "float32")
-        if requested != dtype_name(self.compute_dtype):
-            warnings.warn(
-                f'the config asks for compute_dtype "{requested}"; the port computes in '
-                f'"{dtype_name(self.compute_dtype)}"',
-                stacklevel=2,
-            )
+        # The dtype the model computes in; parameters stay float32.
+        self.compute_dtype = COMPUTE_DTYPES[arch.get("compute_dtype", "float32")]
 
         # Multi-peak disambiguation knobs (reference dream/network.py:187-191).
         self.use_belief_peak_scores = True
         self.belief_peak_next_best_score = 0.25
 
         self._seed = seed
-        self.model = DreamHourglass(
-            self.n_keypoints, generator=torch.Generator().manual_seed(seed),
-            quant_mode=self.quant_mode,
-        ).to(self.device).eval()
+        generator = torch.Generator().manual_seed(seed)
+        if self.architecture_type == "vgg":
+            # The reference's exact rules (dream_tpu/network.py:218-224).
+            vgg_kwargs: Dict[str, Any] = {}
+            if "deconv_decoder" in arch and "full_output" not in arch:
+                vgg_kwargs["deconv_decoder"] = arch["deconv_decoder"]
+            elif "full_output" in arch:
+                vgg_kwargs["deconv_decoder"] = arch["deconv_decoder"]
+                vgg_kwargs["full_output"] = True
+            if "skip_connections" in arch:
+                vgg_kwargs["skip_connections"] = arch["skip_connections"]
+            common = dict(generator=generator, quant_mode=self.quant_mode,
+                          dtype=self.compute_dtype, **vgg_kwargs)
+            if "n_stages" in arch:
+                model = DreamHourglassMultiStage(self.n_keypoints, arch["n_stages"], **common)
+            else:
+                model = DreamHourglass(self.n_keypoints, **common)
+            self._arch_kwargs = {"deconv_decoder": vgg_kwargs.get("deconv_decoder", False),
+                                 "full_output": vgg_kwargs.get("full_output", False)}
+        else:
+            if self.quant_mode is not None:
+                raise ValueError(
+                    "QAT applies to vgg architectures; a resnet is quantized post hoc "
+                    "on its BatchNorm-folded graph (dream_tpu/network.py:239-251)"
+                )
+            resnet_kwargs: Dict[str, Any] = {}
+            if "full_decoder" in arch:
+                resnet_kwargs["full"] = arch["full_decoder"]
+            if "layers" in arch:
+                resnet_kwargs["layers"] = tuple(arch["layers"])
+            model = ResnetSimple(self.n_keypoints, dtype=self.compute_dtype, generator=generator,
+                                 **resnet_kwargs)
+            self._arch_kwargs = {"full": resnet_kwargs.get("full", False)}
+        self.model = model.to(self.device).eval()
         self.criterion = criterion_from_config(arch["loss"])
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.scheduler: Optional[torch.optim.lr_scheduler.LambdaLR] = None
@@ -232,7 +256,11 @@ class DreamNetwork:
         return self.network_config["architecture"]["image_preprocessing"]
 
     def net_output_resolution_from_input_resolution(self, net_input_resolution):
-        return res_utils.net_output_resolution_from_input_resolution(net_input_resolution, "vgg")
+        """Analytic, from the architecture and its options (reference
+        dream/network.py:397-418, ``dream_tpu/network.py:333-340``)."""
+        return res_utils.net_output_resolution_from_input_resolution(
+            net_input_resolution, self.architecture_type, **self._arch_kwargs
+        )
 
     def net_resolutions_from_image_raw_resolution(self, image_raw_resolution):
         """Parity: reference dream/network.py:368-395."""
@@ -251,8 +279,9 @@ class DreamNetwork:
     # --- parameters (reference dream/network.py:592-632) ---
 
     def init_variables(self, seed: Optional[int] = None, force: bool = False) -> Dict[str, torch.Tensor]:
-        """The model's parameters; with ``force``, first redrawn from ``seed``
-        (the constructor's seed if None) with flax's initial distributions.
+        """The model's state (parameters and BatchNorm running statistics);
+        with ``force``, first redrawn from ``seed`` (the constructor's seed if
+        None) with flax's initial values.
         The constructor has already drawn them, so without ``force`` nothing
         changes, as ``dream_tpu``'s call is idempotent."""
         if force:
@@ -261,22 +290,24 @@ class DreamNetwork:
         return self.model.state_dict()
 
     def load_network_params(self, network_params_path: str) -> None:
-        """Load flax msgpack weights (float16 storage is widened to float32)."""
-        state = params_from_flax(load_flax_checkpoint(network_params_path))
+        """Load flax msgpack weights, and a ResNet's ``batch_stats`` (float16
+        storage is widened to float32, ``dream_tpu/network.py:1146-1156``)."""
+        state = state_from_flax(load_flax_checkpoint(network_params_path))
         self.model.load_state_dict(state, strict=True)
 
     def save_network_config(self, config_file_path: str, overwrite: bool = False) -> None:
-        """Write the config, with ``compute_dtype`` the dtype that ran."""
+        """Write the config, with ``compute_dtype`` the dtype that runs."""
         config = copy.deepcopy(self.network_config)
         config["architecture"]["compute_dtype"] = dtype_name(self.compute_dtype)
         save_yaml(config, config_file_path, overwrite=overwrite)
 
     def save_network_params(self, network_params_path: str, overwrite: bool = False) -> None:
-        """Write the parameters as ``dream_tpu``'s ``save_network_params``
-        does (flax msgpack of ``{"params": ...}``, float32, HWIO)."""
+        """Write the variables as ``dream_tpu``'s ``save_network_params``
+        does: flax msgpack of ``{"params"}``, plus ``{"batch_stats"}`` for a
+        ResNet, float32, HWIO."""
         if not overwrite and os.path.exists(network_params_path):
             raise FileExistsError(f'Output file already exists in "{network_params_path}".')
-        save_flax_checkpoint(network_params_path, params_to_flax(self.model.state_dict()))
+        save_flax_checkpoint(network_params_path, state_to_flax(self.model.state_dict()))
 
     def save_network(self, output_dir: str, output_filename_without_extension: str,
                      overwrite: bool = False) -> None:
@@ -333,10 +364,12 @@ class DreamNetwork:
         }
 
     def ema_variables(self) -> Dict[str, torch.Tensor]:
-        """The EMA parameters as a state dict (loadable into ``self.model``)."""
+        """The EMA parameters with the model's current BatchNorm running
+        statistics, as a state dict loadable into ``self.model``
+        (``dream_tpu/network.py:530-532``: the EMA covers parameters only)."""
         if self.ema_params is None:
             raise RuntimeError("Call enable_ema(decay) first.")
-        return dict(self.ema_params)
+        return {**self.model.state_dict(), **self.ema_params}
 
     def enable_fused_training(self, batch_processor: Callable) -> None:
         """Train from raw frames: ``train_raw`` runs ``batch_processor``
@@ -345,15 +378,24 @@ class DreamNetwork:
         self.enable_training()
         self._batch_processor = batch_processor
 
-    def _forward_loss(self, net_input: torch.Tensor, target: torch.Tensor,
-                      params: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+    def _stage_outputs(self, net_input: torch.Tensor,
+                       variables: Optional[Dict[str, torch.Tensor]] = None) -> List[torch.Tensor]:
+        """NHWC net input -> the list of stage outputs, NCHW float32 belief
+        maps, last stage last (one for the single-stage models)."""
         x = net_input.to(self.device, torch.float32).permute(0, 3, 1, 2)
-        if params is None:
-            pred = self.model(x)
+        if variables is None:
+            out = self.model(x)
         else:
-            pred = torch.func.functional_call(self.model, params, (x,))
-        # The criterion accumulates in float32, as loss_fn does.
-        return self.criterion(pred.to(torch.float32), target.to(self.device, torch.float32))
+            out = torch.func.functional_call(self.model, variables, (x,))
+        return out if isinstance(out, list) else [out]
+
+    def _forward_loss(self, net_input: torch.Tensor, target: torch.Tensor,
+                      variables: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+        """The criterion over the stacked stage outputs against the broadcast
+        target, accumulated in float32 (``dream_tpu/network.py:373-392``)."""
+        stacked = torch.stack(self._stage_outputs(net_input, variables)).to(torch.float32)
+        target = target.to(self.device, torch.float32)
+        return self.criterion(stacked, target.expand_as(stacked))
 
     def _step(self, net_input: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
         if self.optimizer is None:
@@ -378,8 +420,10 @@ class DreamNetwork:
 
     def train(self, network_input_heads: Sequence[torch.Tensor], target: torch.Tensor) -> torch.Tensor:
         """One optimization step: ``network_input_heads[0]`` is the NHWC net
-        input, ``target`` the ``[B, n_kp, h, w]`` belief maps.  Returns the
-        loss before the step as a 0-d tensor on the device (no host sync)."""
+        input, ``target`` the ``[B, n_kp, h, w]`` belief maps.  BatchNorm
+        normalises with the batch's statistics and moves its running ones.
+        Returns the loss before the step as a 0-d tensor on the device (no
+        host sync)."""
         return self._step(network_input_heads[0], target)
 
     def train_raw(self, generator: Optional[torch.Generator], raw_images: torch.Tensor,
@@ -399,8 +443,9 @@ class DreamNetwork:
     @torch.no_grad()
     def loss(self, network_input_heads: Sequence[torch.Tensor], target: torch.Tensor,
              variables: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
-        """Evaluation loss, no gradient; ``variables`` (e.g. ``ema_variables()``)
-        replaces the model's parameters for this call only."""
+        """Evaluation loss, no gradient, BatchNorm on its running statistics;
+        ``variables`` (e.g. ``ema_variables()``) replaces the model's state
+        for this call only."""
         self.model.eval()
         return self._forward_loss(network_input_heads[0], target, variables)
 
@@ -421,7 +466,10 @@ class DreamNetwork:
         checkpoints stay float.  Returns the amax by module path.
         """
         if not vgg_int8_deploy.supports(self.model):
-            raise NotImplementedError("int8 inference is ported for vgg-Q only")
+            raise NotImplementedError(
+                "int8 inference is ported for vgg-Q only; vgg-F, the other hourglasses and the "
+                "ResNets need QuantConv's int8 mode, not ported yet"
+            )
         batches = (torch.as_tensor(b).to(self.device, torch.float32).permute(0, 3, 1, 2)
                    for b in calibration_net_inputs)
         qvars = quant_ops.calibrate(self.model, batches)
@@ -433,15 +481,19 @@ class DreamNetwork:
     @torch.no_grad()
     def inference(self, network_input: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """``[B, h, w, 3]`` float net input (channels-last, as the JAX package)
-        -> ``(belief_maps [B, n_kp, h/4, w/4], keypoints [B, n_kp, 2])`` in
-        the net-output frame; the sentinel marks no detection.  Runs the int8
-        chain once :meth:`enable_int8_inference` has been called."""
+        -> ``(belief_maps [B, n_kp, h', w'], keypoints [B, n_kp, 2])`` in
+        the net-output frame, the last stage's maps in float32; the sentinel
+        marks no detection.  BatchNorm runs on its running statistics.  Runs
+        the int8 chain once :meth:`enable_int8_inference` has been called."""
         if self.int8_chain is not None:
             belief = vgg_int8_deploy.run_int8_chain(
                 self.int8_chain, network_input.to(self.device, torch.float32), self.compute_dtype
             ).permute(0, 3, 1, 2).contiguous()
         else:
-            belief = self.model(network_input.to(self.device, torch.float32).permute(0, 3, 1, 2))
+            self.model.eval()
+            belief = self._stage_outputs(network_input)[-1]
+        # The decode (the score kernel) takes float32 maps.
+        belief = belief.to(torch.float32)
         keypoints, _ = bm_ops.keypoints_from_belief_maps(
             belief,
             self.peak_offset_due_to_upsampling(),

@@ -4,7 +4,8 @@
     python3 scripts/profile_torch_eval.py
 
 Runs the main path of chip_smoke.py (vgg-Q r5, seed-99 64-frame holdout,
-batch 16, float32, TF32 off) and prints JSON lines on stdout:
+batch 16, float32 set in the loaded config (the sidecar says bfloat16),
+TF32 off) and prints JSON lines on stdout:
 
 - ``stages``: host-clock milliseconds (each stage ends in a synchronize) of
   preprocessing, the model forward, the peak decode and the coordinate map
@@ -59,17 +60,21 @@ def main():
 
     from dream_tpu_torch.analysis import evaluate_frames
     from dream_tpu_torch.data.synthetic import generate_synthetic_frames
-    from dream_tpu_torch.network import create_network_from_config_file
+    from dream_tpu_torch.network import DreamNetwork
     from dream_tpu_torch.ops import belief_maps as bm
     from dream_tpu_torch.ops import coords
     from dream_tpu_torch.ops import geometric_vision as gv
     from dream_tpu_torch.ops import score_kernel
+    from dream_tpu_torch.utils.config import load_yaml
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(json.dumps({"device": torch.cuda.get_device_name(0), "torch": torch.__version__}), flush=True)
 
-    net = create_network_from_config_file(CONFIG, CHECKPOINT, device="cuda")
+    cfg = load_yaml(CONFIG)
+    cfg["architecture"]["compute_dtype"] = "float32"  # the sidecar says bfloat16
+    net = DreamNetwork(cfg, device="cuda")
+    net.load_network_params(CHECKPOINT)
     data = generate_synthetic_frames(FRAMES, (640, 480), net.keypoint_names, seed=99)
     gt = {"projections": data["projections"], "positions": data["positions"]}
     run = lambda: evaluate_frames(net, data["images"], gt, data["camera_K"], BATCH_SIZE)

@@ -24,3 +24,6 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "cuda: needs an NVIDIA GPU (a CUDA kernel with no CPU mode); skips elsewhere"
     )
+    config.addinivalue_line(
+        "markers", "slow: a full-holdout run on the CPU; tier-1 leaves it out (-m 'not slow')"
+    )

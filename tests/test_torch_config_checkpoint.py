@@ -180,34 +180,44 @@ def test_params_to_flax_inverts_params_from_flax():
 
 
 def test_params_from_flax_rejects_unknown_leaves():
+    # A running statistic belongs to batch_stats, not to params.
     with pytest.raises(ValueError):
-        checkpoint.params_from_flax({"params": {"bn": {"scale": np.ones(3, np.float32)}}})
+        checkpoint.params_from_flax({"params": {"bn": {"mean": np.ones(3, np.float32)}}})
 
 
 def test_compute_dtype_is_the_one_that_runs(tmp_path):
-    """A bfloat16 sidecar warns once naming both dtypes; the network says,
-    and a saved sidecar writes, the float32 that runs."""
+    """A bfloat16 sidecar runs bfloat16 with no warning: the convs' outputs
+    are bfloat16, the belief maps float32, and a saved sidecar says
+    bfloat16; a float32 config runs and saves float32."""
     import warnings
 
     from dream_tpu_torch.network import DreamNetwork
 
     cfg = load_yaml(os.path.join(ROOT, "trained_models/results_r5/vggq/dream_vgg_q_r5.yaml"))
     assert cfg["architecture"]["compute_dtype"] == "bfloat16"
+    cfg["training"]["config"]["net_input_resolution"] = [64, 64]
+    cfg["training"]["config"]["net_output_resolution"] = [16, 16]
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         net = DreamNetwork(cfg, device="cpu")
-    messages = [str(w.message) for w in caught if "compute_dtype" in str(w.message)]
-    assert len(messages) == 1 and "bfloat16" in messages[0] and "float32" in messages[0]
-    assert net.compute_dtype == torch.float32
-    assert net.network_config["architecture"]["compute_dtype"] == "bfloat16"  # the input is kept
+    assert not [w for w in caught if "compute_dtype" in str(w.message)]
+    assert net.compute_dtype == torch.bfloat16
+    seen = []
+    net.model.down3.conv1.register_forward_hook(lambda m, i, o: seen.append(o.dtype))
+    belief, _ = net.inference(torch.zeros(1, 64, 64, 3))
+    assert seen == [torch.bfloat16] and belief.dtype == torch.float32
     path = str(tmp_path / "net.yaml")
     net.save_network_config(path)
     saved = load_yaml(path)
-    assert saved["architecture"]["compute_dtype"] == "float32"
+    assert saved["architecture"]["compute_dtype"] == "bfloat16"
+    saved["architecture"]["compute_dtype"] = "float32"
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        DreamNetwork(saved, device="cpu")
+        net32 = DreamNetwork(saved, device="cpu")
     assert not [w for w in caught if "compute_dtype" in str(w.message)]
+    assert net32.compute_dtype == torch.float32
+    net32.save_network_config(path, overwrite=True)
+    assert load_yaml(path)["architecture"]["compute_dtype"] == "float32"
 
 
 FORBIDDEN_IMPORTS = {

@@ -1,9 +1,9 @@
 """The port's vgg-Q model and inference facade against dream_tpu on the CPU.
 
 Both packages load the committed flagship checkpoint
-(trained_models/results_r5/vggq) at full width and run float32 (the JAX
-side's compute_dtype is set to float32 in the loaded config dict, as the
-port always computes in float32).  The input is 128x128, so the belief maps
+(trained_models/results_r5/vggq) at full width and run float32 (both
+sides set compute_dtype to float32 in the loaded config dict; the sidecar
+says bfloat16).  The input is 128x128, so the belief maps
 are 32x32.  The two differ only in convolution summation order: belief
 values agree to 1e-4 (they range over about [-0.1, 1]) and keypoints, decoded
 from those maps, to 1e-3 px in the net-output frame.  ``keypoints_from_image``
@@ -25,7 +25,7 @@ from dream_tpu.network import create_network_from_config_data
 from dream_tpu.utils.config import load_yaml as jax_load_yaml
 
 from dream_tpu_torch.data.synthetic import generate_synthetic_frames
-from dream_tpu_torch.network import DreamNetwork, create_network_from_config_file
+from dream_tpu_torch.network import DreamNetwork
 from dream_tpu_torch.utils.config import load_yaml
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -46,11 +46,18 @@ def jax_network():
     return net
 
 
+def torch_network():
+    """The port's float32 vgg-Q network with the committed weights."""
+    cfg = load_yaml(CONFIG)
+    cfg["architecture"]["compute_dtype"] = "float32"
+    net = DreamNetwork(cfg, device="cpu")
+    net.load_network_params(PARAMS)
+    return net
+
+
 @pytest.fixture(scope="module")
 def networks():
-    jax_net = jax_network()
-    torch_net = create_network_from_config_file(CONFIG, PARAMS, device="cpu")
-    return jax_net, torch_net
+    return jax_network(), torch_network()
 
 
 def test_model_and_inference_match_jax(networks):
@@ -98,11 +105,19 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
 
 @pytest.mark.parametrize(
     "override",
-    [{"spatial_softmax": {"learned_beta": True, "initial_beta": 1.0}}, {"deconv_decoder": True},
+    [{"spatial_softmax": {"learned_beta": True, "initial_beta": 1.0}}, "int8 of vgg-F",
      {"quant_mode": "int8"}],
 )
 def test_unported_architectures_are_refused(override):
     cfg = load_yaml(CONFIG)
+    if override == "int8 of vgg-F":  # int8 is ported for vgg-Q only
+        cfg["architecture"]["deconv_decoder"] = True
+        cfg["training"]["config"]["net_input_resolution"] = [64, 64]
+        del cfg["training"]["config"]["net_output_resolution"]
+        net = DreamNetwork(cfg, device="cpu")
+        with pytest.raises(NotImplementedError, match="vgg-Q only"):
+            net.enable_int8_inference([torch.zeros(1, 64, 64, 3)])
+        return
     cfg["architecture"].update(override)
     with pytest.raises(NotImplementedError):
         DreamNetwork(cfg, device="cpu")

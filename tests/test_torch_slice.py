@@ -30,7 +30,8 @@ from dream_tpu.utils.config import load_yaml as jax_load_yaml
 
 from dream_tpu_torch.analysis import evaluate_frames
 from dream_tpu_torch.data.synthetic import generate_synthetic_frames
-from dream_tpu_torch.network import create_network_from_config_file
+from dream_tpu_torch.network import DreamNetwork
+from dream_tpu_torch.utils.config import load_yaml
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(ROOT, "trained_models/results_r5/vggq/dream_vgg_q_r5.yaml")
@@ -78,7 +79,10 @@ def test_two_frame_slice_matches_jax(tmp_path):
         pnp_rows = list(csv.reader(f))[1:]
     ref_add = np.array([float(r[9]) for r in pnp_rows])
 
-    torch_net = create_network_from_config_file(CONFIG, PARAMS, device="cpu")
+    cfg = load_yaml(CONFIG)
+    cfg["architecture"]["compute_dtype"] = "float32"
+    torch_net = DreamNetwork(cfg, device="cpu")
+    torch_net.load_network_params(PARAMS)
     gt = {"projections": frames["projections"], "positions": frames["positions"]}
     result = evaluate_frames(torch_net, frames["images"], gt, frames["camera_K"], batch_size=2)
 
