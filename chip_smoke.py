@@ -106,18 +106,51 @@ Phases, each ending with one JSON progress line on stdout:
    augmented train_raw step at B=32 and its peak memory, and for bf16 one
    step under torch.profiler (busy share, longest kernels).
 
+17. datasets on disk through the dataset CLI in a temporary directory: the
+   seed-99 64-frame 640x480 panda holdout, which must decode bit for bit to
+   phase 5's frames with keypoints equal in float32, and a 128-frame seed-11
+   training set; ms a frame to write and to decode;
+18. the evaluation CLI on the holdout (batch 16, no mosaics): vgg-Q r5 in
+   its sidecar's bf16 under phase 5's bounds around the r5 report, with the
+   report's lines, paths and numbers masked, equal to the committed
+   report's, the committed CSV headers and row names, the score kernel
+   once a batch, and its keypoints against the committed keypoints.csv
+   (printed, not gated); vgg-F r5 under phase 13's bounds; the r4
+   checkpoint with --int8-calibration-frames 32 under results_r5/eval_vggq_ptq's
+   bounds, the conv kernel 19 times a batch; vgg-Q r5 with --ransac, with
+   --pnp-weight-by-score --pnp-reject-outliers-px 10 and with
+   --pnp-soft-detections --pnp-reject-outliers-px 5, each keeping PnP
+   successes at or above the plain run's and ADD AUC in [0, 1];
+19. the training CLI on the 128 frames with the r5 recipe's flags (batch
+   32, bf16, clipping, --cache-device, EMA): vgg-Q for 2 epochs, then -r to
+   3 (the checkpoint layout, one warp launch a step, finite losses, the
+   optimizer's count equal to the steps taken, the log's epochs and
+   resume, best_network through the evaluation CLI); one epoch of vgg-F
+   grafted from the r5 vgg-Q checkpoint (--init-encoder, --loss-pos-weight
+   800); one QAT epoch from the r4 checkpoint;
+20. timings: the evaluation CLI's frames/s against evaluate_frames in
+   memory in the same dtype, the CLI's stages (decode, preprocess, model,
+   peak decode, PnP), each PnP mode over the 64 frames, the training
+   CLI's epochs in images/s against train_raw (phases 7 and 16), and an
+   epoch checkpoint's host snapshot and file writes.
+
 Then a line listing the kernels with their measurements (each row's ms and
 library_ms time the same work; the score and warp rows' ms is device time
 from a CUDA graph, and the warp's library_ms too; the score row adds its
 device time at phase 15's shapes; redesigned_in names the design the kernel
-now has), and as the last line
+now has; launches are counted on the CLI runs of phases 18-19), and as the
+last line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
 before that line.  Without CUDA the script exits non-zero at once.
 """
 
+import contextlib
 import copy
+import csv
+import io
 import json
 import os
+import pickle
 import re
 import subprocess
 import sys
@@ -144,6 +177,16 @@ RESNETS = {
     "resnet-H": (os.path.join(ROOT, "trained_models/results_r4/resnet_h/dream_resnet_h_r4.yaml"), 208),
     "resnet-F": (os.path.join(ROOT, "trained_models/results_r5/resnetf/dream_resnet_f_r5.yaml"), 416),
 }
+PANDA = os.path.join(ROOT, "manip_configs/panda.yaml")
+VGGQ_ARCH = os.path.join(ROOT, "arch_configs/dream_vgg_q.yaml")
+VGGF_ARCH = os.path.join(ROOT, "arch_configs/dream_vgg_f.yaml")
+REFERENCE_DIR = os.path.join(ROOT, "trained_models/results_r5/eval_vggq_r5")
+# The r5 training recipe's flags (scripts/r5_artifact_queue.sh:52-54), and
+# the sizes of the sets the workflow phases write.
+R5_TRAIN_FLAGS = ["-b", "32", "-lr", "2e-4", "--grad-clip-norm", "1.0", "--cache-device",
+                  "--compute-dtype", "bfloat16", "-s", "42", "-w", "8"]
+HOLDOUT_FRAMES = 64
+TRAIN_SET_FRAMES = 128
 INT8_REFERENCES = {
     "float_r4": "trained_models/results_r4/eval_vggq_plain/analysis_results.txt",
     "ptq_r4": "trained_models/results_r5/eval_vggq_ptq/analysis_results.txt",
@@ -521,6 +564,334 @@ def map_correlation(a, b):
     return float(np.corrcoef(a.double().cpu().numpy().ravel(), b.double().cpu().numpy().ravel())[0, 1])
 
 
+def quiet(fn, *args):
+    """``fn(*args)`` with its standard output kept in memory (the CLIs print
+    whole configs); returns ``(result, text)``.  On an error the text's
+    tail is printed before the error propagates."""
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            return fn(*args), buf.getvalue()
+    except BaseException:
+        sys.stdout.write(buf.getvalue()[-4000:])
+        raise
+
+
+NUMBER = re.compile(r"-?\d+(?:\.\d+)?")
+
+
+def masked_report(path):
+    """A report's lines with paths and numbers masked: its layout."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    return [NUMBER.sub("#", " ".join("<path>" if "/" in w else w for w in line.split(" ")))
+            for line in lines]
+
+
+def csv_layout(path):
+    """A CSV's header and its row names."""
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    return rows[0], [r[0] for r in rows[1:]]
+
+
+def keypoint_agreement(ours_csv, ref_csv):
+    """How two keypoints.csv files agree: the share of keypoints with the
+    same found state, and the median and largest px distance where both
+    found it."""
+    def detections(path):
+        with open(path, newline="") as f:
+            rows = list(csv.reader(f))
+        n_kp = (len(rows[0]) - 1) // 4
+        return np.array([r[1:1 + 2 * n_kp] for r in rows[1:]], float).reshape(len(rows) - 1, n_kp, 2)
+
+    a, b = detections(ours_csv), detections(ref_csv)
+    found_a, found_b = a[..., 0] > -999.0, b[..., 0] > -999.0
+    both = found_a & found_b
+    dist = np.linalg.norm(a - b, axis=-1)[both]
+    return {"same_found_state_share": float(np.mean(found_a == found_b)),
+            "both_found": int(both.sum()), "median_px": float(np.median(dist)),
+            "max_px": float(dist.max())}
+
+
+def alternate_add_auc(text):
+    m = re.search(r"rotation convention: ([0-9.]+) / ", text)
+    return float(m.group(1)) if m else float("nan")
+
+
+def workflow_phases(kernels_of_port, reset_counts, smi, holdout):
+    """Phases 17-20: the command-line workflow on disk at full width, in a
+    temporary directory: datasets written and read through the port's CLI
+    and PNG codec, the evaluation CLI on four checkpoints and in every PnP
+    mode, the training CLI with resume, an encoder graft and QAT, and their
+    timings.  Returns the CLI runs' kernel launches and the timings."""
+    from dream_tpu_torch import analysis
+    from dream_tpu_torch.checkpoint import load_flax_checkpoint, state_to_flax
+    from dream_tpu_torch.cli import make_synthetic_dataset as dataset_cli
+    from dream_tpu_torch.cli import network_inference_dataset as eval_cli
+    from dream_tpu_torch.cli import train_network as train_cli
+    from dream_tpu_torch.data.dataset import ManipulatorNDDSDataset, make_batch_processor
+    from dream_tpu_torch.network import create_network_from_config_file, dtype_name
+    from dream_tpu_torch.ops import coords as coord_ops
+    from dream_tpu_torch.utils.config import load_yaml
+    from dream_tpu_torch.utils.png import read_png
+
+    def launches():
+        return {k: v.launches for k, v in kernels_of_port.items()}
+
+    def timed(fn, *args):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result, text = quiet(fn, *args)
+        torch.cuda.synchronize()
+        return result, text, time.perf_counter() - t0, launches()
+
+    out = {"launches": {}, "timings": {"card": smi}}
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = tmp_dir.name
+
+    # 17. Datasets on disk through the dataset CLI.
+    hold = os.path.join(tmp, "hold64")
+    _, _, write_s, _ = timed(dataset_cli.main, dataset_cli.make_parser().parse_args(
+        ["-m", PANDA, "-o", hold, "-n", str(HOLDOUT_FRAMES), "--seed", "99", "--holdout"]))
+    names = [kp["name"] for kp in load_yaml(PANDA)["manipulator"]["keypoints"]]
+    disk = ManipulatorNDDSDataset(hold, "panda", names, (400, 400), (100, 100), n_decode_threads=8)
+    t0 = time.perf_counter()
+    images = disk.load_images(range(HOLDOUT_FRAMES))
+    decode_threaded_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for i in range(8):
+        read_png(disk.ndds_dataset_data[i]["image_paths"]["rgb"])
+    decode_one_ms = (time.perf_counter() - t0) / 8 * 1e3
+    if not np.array_equal(images, holdout["images"]):
+        raise AssertionError("the holdout written to disk does not decode to the in-memory frames")
+    if not (np.array_equal(disk.kp_projs_raw, holdout["projections"].astype(np.float32))
+            and np.array_equal(disk.kp_positions, holdout["positions"].astype(np.float32))):
+        raise AssertionError("the holdout's keypoints on disk differ from the in-memory ones")
+    train_set = os.path.join(tmp, "train128")
+    _, _, train_write_s, _ = timed(dataset_cli.main, dataset_cli.make_parser().parse_args(
+        ["-m", PANDA, "-o", train_set, "-n", str(TRAIN_SET_FRAMES), "--seed", "11"]))
+    out["timings"]["dataset"] = {
+        "write_ms_per_frame": write_s / HOLDOUT_FRAMES * 1e3,
+        "write_train_set_ms_per_frame": train_write_s / TRAIN_SET_FRAMES * 1e3,
+        "decode_ms_per_frame_8_threads": decode_threaded_s / HOLDOUT_FRAMES * 1e3,
+        "decode_ms_per_frame_one_thread": decode_one_ms}
+    progress("datasets_on_disk", holdout="equal to the in-memory frames, bit for bit",
+             keypoints="equal in float32", **out["timings"]["dataset"])
+
+    # 18. The evaluation CLI on the card.
+    def evaluate_cli(name, argv, reference, outframe_tol=0, min_pnp=56):
+        out_dir = os.path.join(tmp, "eval_" + re.sub(r"\W+", "_", name))
+        args = eval_cli.make_parser().parse_args(
+            argv + ["-d", hold, "-o", out_dir, "--no-visualization", "-b", "16", "-w", "8"])
+        (kp, pnp), text, seconds, counts = timed(eval_cli.network_inference_dataset, args)
+        result = {"keypoints": kp, "pnp": pnp, "pnp_transposed": {"add_auc": alternate_add_auc(text)}}
+        ref = reference_metrics(os.path.join(ROOT, reference))
+        measured, failures = eval_bounds(result, ref, outframe_tol, min_pnp)
+        if counts["score_kernel"] != HOLDOUT_FRAMES // 16:
+            failures.append(f"the score kernel launched {counts['score_kernel']} times, not once a batch")
+        if failures:
+            raise AssertionError(f"{name}: " + "; ".join(failures))
+        progress("evaluation_cli", run=name, seconds=seconds,
+                 frames_per_s=HOLDOUT_FRAMES / seconds, launches=counts, measured=measured)
+        return out_dir, result, seconds, counts
+
+    vggq_dir, plain, plain_s, vggq_counts = evaluate_cli(
+        "vgg-Q r5 bf16", ["-i", CHECKPOINT], REFERENCE)
+    out["launches"]["score_kernel"] = vggq_counts["score_kernel"]
+    if masked_report(os.path.join(vggq_dir, "analysis_results.txt")) != masked_report(REFERENCE):
+        raise AssertionError("the report's lines differ from the committed report's")
+    for f in ("keypoints.csv", "pnp_results.csv"):
+        if csv_layout(os.path.join(vggq_dir, f)) != csv_layout(os.path.join(REFERENCE_DIR, f)):
+            raise AssertionError(f"{f}: header or row names differ from the committed file's")
+    agreement = keypoint_agreement(os.path.join(vggq_dir, "keypoints.csv"),
+                                   os.path.join(REFERENCE_DIR, "keypoints.csv"))
+    progress("evaluation_cli_layout", report="the committed report's lines, paths and numbers masked",
+             csv="the committed headers and row names", keypoints_vs_committed=agreement)
+    evaluate_cli("vgg-F r5 bf16", ["-i", VGGF_CHECKPOINT], VGGF_REFERENCE, outframe_tol=2, min_pnp=57)
+    _, _, _, ptq_counts = evaluate_cli(
+        "vgg-Q r4 PTQ", ["-i", R4_CHECKPOINT, "--int8-calibration-frames", str(CALIBRATION_FRAMES)],
+        INT8_REFERENCES["ptq_r4"])
+    if ptq_counts["conv_int8_kernel"] != 19 * (HOLDOUT_FRAMES // 16):
+        raise AssertionError(f"the PTQ run launched the conv kernel {ptq_counts['conv_int8_kernel']} "
+                             "times, not 19 a batch")
+    out["launches"]["conv_int8_kernel"] = ptq_counts["conv_int8_kernel"]
+    modes = {"ransac": ["--ransac"],
+             "weighted+reject10": ["--pnp-weight-by-score", "--pnp-reject-outliers-px", "10"],
+             "soft+reject5": ["--pnp-soft-detections", "--pnp-reject-outliers-px", "5"]}
+    robust = {}
+    for mode, flags in modes.items():
+        out_dir = os.path.join(tmp, "eval_" + mode.replace("+", "_"))
+        args = eval_cli.make_parser().parse_args(
+            ["-i", CHECKPOINT, "-d", hold, "-o", out_dir, "--no-visualization", "-b", "16"] + flags)
+        (kp, pnp), _, seconds, _ = timed(eval_cli.network_inference_dataset, args)
+        robust[mode] = {"pnp_success": [pnp["num_pnp_found"], pnp["num_pnp_possible"]],
+                        "add_auc": pnp["add_auc"], "add_mean": pnp["add_mean"],
+                        "pck_auc": kp["l2_error_auc"], "seconds": seconds}
+        if pnp["num_pnp_found"] < plain["pnp"]["num_pnp_found"] or not 0.0 <= pnp["add_auc"] <= 1.0:
+            raise AssertionError(f"{mode}: PnP {pnp['num_pnp_found']} (plain "
+                                 f"{plain['pnp']['num_pnp_found']}), ADD AUC {pnp['add_auc']}")
+    progress("evaluation_cli_pnp_modes", plain={"pnp_success": [plain["pnp"]["num_pnp_found"],
+                                                              plain["pnp"]["num_pnp_possible"]],
+                                                "add_auc": plain["pnp"]["add_auc"], "seconds": plain_s},
+             modes=robust)
+
+    # 19. The training CLI on the card: vgg-Q with the r5 recipe, then a
+    # resume; vgg-F from the r5 vgg-Q encoder; a QAT epoch.
+    def train(argv):
+        return timed(train_cli.train_network, train_cli.make_parser().parse_args(argv))
+
+    vggq_out = os.path.join(tmp, "train_vggq")
+    argv = (["-i", train_set, "-m", PANDA, "-ar", VGGQ_ARCH, "-o", vggq_out, "--loss-pos-weight", "50",
+             "--ema-decay", "0.999"] + R5_TRAIN_FLAGS)
+    steps_per_epoch = int(round(TRAIN_SET_FRAMES * 0.8)) // TRAIN_BATCH
+    _, _, first_s, first_counts = train(argv + ["-e", "2"])
+    files = set(os.listdir(vggq_out))
+    layout = {"epoch_2.yaml", "epoch_2.msgpack", "epoch_2.opt.msgpack", "epoch_2.ema.msgpack",
+              "best_network.yaml", "best_network.msgpack", "best_network_ema.yaml",
+              "best_network_ema.msgpack", "training_log.pkl"}
+    if not layout <= files or "epoch_1.msgpack" in files:
+        raise AssertionError(f"checkpoint layout after two epochs: {sorted(files)}")
+    trainer, _, resume_s, resume_counts = train(argv + ["-e", "3", "-r"])
+    out["launches"]["warp_kernel"] = first_counts["warp_kernel"]
+    if (first_counts["warp_kernel"] != 2 * steps_per_epoch
+            or resume_counts["warp_kernel"] != steps_per_epoch):
+        raise AssertionError(f"warp launches {first_counts['warp_kernel']} and "
+                             f"{resume_counts['warp_kernel']}, not one a step ({steps_per_epoch} an epoch)")
+    with open(os.path.join(vggq_out, "training_log.pkl"), "rb") as f:
+        log = pickle.load(f)
+    losses = [x for epoch in log["batch_training_losses"] for x in epoch]
+    if log["epochs"] != [1, 2, 3] or log["epochs_resumed"] != [3] or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"training log: epochs {log['epochs']}, resumed "
+                             f"{log.get('epochs_resumed')}, losses {losses}")
+    opt = load_flax_checkpoint(os.path.join(vggq_out, "epoch_3.opt.msgpack"))
+    count = int(opt["1"]["0"]["count"])
+    if count != 3 * steps_per_epoch or trainer.steps != count:
+        raise AssertionError(f"optimizer count {count}, steps {trainer.steps}, expected {3 * steps_per_epoch}")
+    (kp, _), _, _, _ = timed(eval_cli.network_inference_dataset, eval_cli.make_parser().parse_args(
+        ["-i", os.path.join(vggq_out, "best_network.msgpack"), "-d", hold, "-o",
+         os.path.join(tmp, "eval_trained"), "--no-visualization", "-b", "16"]))
+    # Epoch seconds from the log (timestamps count from each run's start,
+    # so the first and the resumed epoch include the run's set-up).
+    ts = log["timestamps"]
+    epoch_s = [ts[0], ts[1] - ts[0], ts[2]]
+    # The epoch checkpoint's two halves: the host snapshot, then the files.
+    t0 = time.perf_counter()
+    snapshot = (copy.deepcopy(trainer.network_config), state_to_flax(trainer.model.state_dict()),
+                trainer.optimizer_state(), None, state_to_flax(trainer.ema_variables()))
+    snapshot_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train_cli._write_checkpoint(tmp, "timed", *snapshot)
+    write_files_s = time.perf_counter() - t0
+    progress("training_cli", arch="vgg-Q", flags=R5_TRAIN_FLAGS, seconds=[first_s, resume_s],
+             launches=[first_counts, resume_counts], epochs=log["epochs"],
+             epochs_resumed=log["epochs_resumed"], optimizer_count=count, losses=log["losses"],
+             validation_losses=log["validation_losses"], layout=sorted(files),
+             best_network_evaluated={"inframe_found": kp["num_found_gt_inframe"]})
+    del trainer
+
+    vggf_out = os.path.join(tmp, "train_vggf")
+    _, text, vggf_s, vggf_counts = train(
+        ["-i", train_set, "-m", PANDA, "-ar", VGGF_ARCH, "-o", vggf_out, "-e", "1",
+         "--loss-pos-weight", "800", "--init-encoder", CHECKPOINT] + R5_TRAIN_FLAGS)
+    grafted = re.search(r"\((\d+) leaves grafted, (\d+) shape-skipped\)", text)
+    if grafted is None or int(grafted.group(1)) == 0 or vggf_counts["warp_kernel"] != steps_per_epoch:
+        raise AssertionError(f"vgg-F: graft {grafted and grafted.group(0)}, launches {vggf_counts}")
+    qat_out = os.path.join(tmp, "train_qat")
+    qat, _, qat_s, qat_counts = train(
+        ["-i", train_set, "-m", PANDA, "-ar", VGGQ_ARCH, "-o", qat_out, "-e", "1", "--quant-mode", "qat",
+         "--init-params", R4_CHECKPOINT, "--loss-pos-weight", "50"] + R5_TRAIN_FLAGS + ["-lr", "5e-5"])
+    with open(os.path.join(qat_out, "training_log.pkl"), "rb") as f:
+        qat_losses = pickle.load(f)["batch_training_losses"][0]
+    if qat.quant_mode != "qat" or qat_counts["warp_kernel"] != steps_per_epoch or not np.all(
+            np.isfinite(qat_losses)):
+        raise AssertionError(f"QAT: mode {qat.quant_mode}, launches {qat_counts}, losses {qat_losses}")
+    progress("training_cli_graft_qat", vggf={"n_grafted": int(grafted.group(1)),
+                                              "n_skipped": int(grafted.group(2)), "seconds": vggf_s,
+                                              "launches": vggf_counts},
+             qat={"seconds": qat_s, "launches": qat_counts, "losses": qat_losses})
+    del qat
+
+    # 20. Timings: the evaluation CLI's stages, each PnP mode over the 64
+    # frames, the training CLI's epochs and its checkpoint writes.
+    network = create_network_from_config_file(CONFIG, CHECKPOINT, device="cuda")
+    raw_res = (640, 480)
+    netin, netout = network.net_resolutions_from_image_raw_resolution(raw_res)
+    process = make_batch_processor(raw_res, netin, netout, network.image_preprocessing(),
+                                   network.image_normalization, include_belief_maps=False)
+    kp_to_raw = coord_ops.affine_raw_from_netin(netin, raw_res, network.image_preprocessing()).compose(
+        coord_ops.affine_netin_from_netout(netout, netin))
+    stages = dict.fromkeys(("decode", "preprocess", "model", "peak_decode"), 0.0)
+    detected, scores, best = [], [], []
+
+    def clock(stage, t0):
+        torch.cuda.synchronize()
+        stages[stage] += time.perf_counter() - t0
+        return time.perf_counter()
+
+    for start in range(0, HOLDOUT_FRAMES, 16):
+        t0 = time.perf_counter()
+        batch = disk.host_batch(list(range(start, start + 16)))
+        t0 = clock("decode", t0)
+        x = process(None, torch.from_numpy(batch["image_rgb_raw"]).cuda(),
+                    torch.from_numpy(batch["keypoint_projections_raw"]).cuda())["image_rgb_input"]
+        t0 = clock("preprocess", t0)
+        with torch.no_grad():
+            belief = network._belief_maps(x)
+        t0 = clock("model", t0)
+        kp_netout, peaks = network._keypoints(belief)
+        detected.append(kp_to_raw(kp_netout))
+        scores.append(peaks["scores"][..., 0])
+        best.append(kp_to_raw(peaks["coords"][..., 0, :]))
+        clock("peak_decode", t0)
+    positions = torch.from_numpy(disk.kp_positions).cuda()
+    K = holdout["camera_K"]
+    n_inframe = analysis._inframe_counts(disk.kp_projs_raw.astype(float), raw_res)
+    detected, soft = torch.cat(detected), torch.cat(best)
+    scores = torch.cat(scores).cpu().numpy()
+    weighted = torch.from_numpy(analysis._pnp_weights(scores, True, False, 0.05)).cuda()
+    soft_w = torch.from_numpy(analysis._pnp_weights(scores, False, True, 0.05)).cuda()
+    pnp_cases = {
+        "plain": dict(pnp_input_raw=detected),
+        "ransac": dict(pnp_input_raw=detected, ransac=True),
+        "weighted+reject10": dict(pnp_input_raw=detected, weights=weighted, reject_outliers_px=10.0),
+        "soft+reject5": dict(pnp_input_raw=soft, weights=soft_w, reject_outliers_px=5.0,
+                             detect_mask=(soft[..., 0] > -999.0) & (soft_w > 0)),
+    }
+    pnp_s = {}
+    for mode, kwargs in pnp_cases.items():
+        pnp_s[mode] = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            analysis._pnp_and_add(positions, camera_K=K, n_inframe=n_inframe, **kwargs)
+            torch.cuda.synchronize()
+            pnp_s[mode].append(time.perf_counter() - t0)
+    gt = {"projections": holdout["projections"], "positions": holdout["positions"]}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    analysis.evaluate_frames(network, holdout["images"], gt, K, batch_size=16)
+    torch.cuda.synchronize()
+    in_memory_s = time.perf_counter() - t0
+    images_per_epoch = steps_per_epoch * TRAIN_BATCH
+    out["timings"].update({
+        "eval_cli_frames_per_s": HOLDOUT_FRAMES / plain_s,
+        "eval_in_memory_frames_per_s": HOLDOUT_FRAMES / in_memory_s,
+        "eval_stages_s": {**stages, "pnp": pnp_s["plain"][-1]},
+        "pnp_modes_s_64_frames": pnp_s,
+        "train_cli_epoch_s": epoch_s,
+        "train_cli_images_per_s": [images_per_epoch / s for s in epoch_s],
+        "train_cli_epoch_note": "epochs 1 and 3 (resumed) include set-up; each includes validation",
+        "checkpoint_snapshot_s": snapshot_s,
+        "checkpoint_write_files_s": write_files_s,
+        "dtype": dtype_name(network.compute_dtype),
+    })
+    progress("workflow_timings", **out["timings"])
+    tmp_dir.cleanup()
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -828,7 +1199,7 @@ def main():
     if r4.compute_dtype != torch.bfloat16:
         raise AssertionError("the r4 sidecar's bfloat16 did not reach the network")
     evaluate(r4, "float_r4", 0)
-    int8_launches = evaluate(r4, "ptq_r4", CALIBRATION_FRAMES)
+    evaluate(r4, "ptq_r4", CALIBRATION_FRAMES)
     x16 = r4.preprocess(torch.from_numpy(holdout["images"][:16]))
     with torch.no_grad():
         float_maps = r4.model(x16.permute(0, 3, 1, 2))
@@ -858,8 +1229,9 @@ def main():
     # 11. The kernel at the main path's shapes (B=16), bit for bit, and
     # int8 timings there.
     shapes16 = chain_shapes(16)
-    link_ms, link_plain_ms, link_library_ms = [], [], []
-    library_note = "torch._int_mm on [B*H*W, 9*Ci] x [9*Ci, Co]; im2col built beforehand, not timed"
+    link_ms, link_plain_ms, link_library_ms, link_library_im2col_ms = [], [], [], []
+    library_note = ("torch._int_mm on [B*H*W, 9*Ci] x [9*Ci, Co]; link_library_ms: im2col built "
+                    "beforehand, not timed; link_library_im2col_ms: im2col built in the timing")
     for b, h, w, ci, co, relu in shapes16:
         x_q, w_q, k, bias = int8_case(gen, b, h, w, ci, co)
         conv_cases[f"{b}x{h}x{w}x{ci}->{co} relu={relu}"] = compare_conv_int8(x_q, w_q, k, bias, relu)[1]
@@ -873,10 +1245,12 @@ def main():
             raise AssertionError(f"torch._int_mm differs from the exact accumulator at {b}x{h}x{w}x{ci}->{co}")
         link_library_ms.append(cuda_ms(lambda: torch._int_mm(cols, w_kn), 10))
         del cols
+        link_library_im2col_ms.append(cuda_ms(lambda: torch._int_mm(im2col_int8(x_q), w_kn), 10))
     progress("conv_int8_kernel_vs_plain_b16", max_abs_err={k: v for k, v in conv_cases.items()
                                                            if k.startswith("16x")})
     conv_bound, conv_bound_by, chain_ops = conv_int8_bound_ms(shapes16)
     chain_ms, chain_plain_ms, chain_library_ms = sum(link_ms), sum(link_plain_ms), sum(link_library_ms)
+    chain_library_im2col_ms = sum(link_library_im2col_ms)
     with torch.no_grad():
         int8_forward_ms = [cuda_ms(lambda: run_int8_chain(r4.int8_chain, x16), 5, warmup=2)
                            for _ in range(2)]
@@ -890,8 +1264,9 @@ def main():
     torch.cuda.synchronize()
     int8_loop_s = time.perf_counter() - t0
     progress("int8_timings", link_ms=link_ms, link_plain_ms=link_plain_ms,
-             link_library_ms=link_library_ms, library=library_note,
-             chain_ms=chain_ms, chain_plain_ms=chain_plain_ms, chain_library_ms=chain_library_ms,
+             link_library_ms=link_library_ms, link_library_im2col_ms=link_library_im2col_ms,
+             library=library_note, chain_ms=chain_ms, chain_plain_ms=chain_plain_ms,
+             chain_library_ms=chain_library_ms, chain_library_im2col_ms=chain_library_im2col_ms,
              chain_bound_ms=conv_bound, chain_bound_by=conv_bound_by, chain_gop=chain_ops / 1e9,
              chain_tops=chain_ops / chain_ms / 1e9,
              link_shapes=[list(shape) for shape in shapes16],
@@ -1074,12 +1449,21 @@ def main():
     progress("architecture_timings", card=smi, batch_forward=16, batch_train=TRAIN_BATCH,
              timings=arch_timings)
 
+    # 17-20. The command-line workflow on disk.
+    workflow = workflow_phases(kernels_of_port, reset_counts, smi, holdout)
+    progress("workflow_vs_in_memory", card=smi,
+             train_cli_steady_images_per_s=workflow["timings"]["train_cli_images_per_s"][1],
+             train_raw_bf16_images_per_s=arch_timings["vgg-Q bfloat16"]["train_images_per_s"],
+             train_raw_f32_images_per_s=TRAIN_BATCH / step_ms * 1e3,
+             eval_cli_frames_per_s=workflow["timings"]["eval_cli_frames_per_s"],
+             eval_in_memory_frames_per_s=workflow["timings"]["eval_in_memory_frames_per_s"])
+
     kernels = [{
         "name": "score_kernel",
         "route": "cuda",
         "source": "dream_tpu_torch/csrc/score_kernel.cu",
         "replaces": "dream_tpu/ops/pallas_kernels.py:40",
-        "launches": eval_launches["score_kernel"],
+        "launches": workflow["launches"]["score_kernel"],
         "max_abs_err": score_err,
         "ms": min(score_device_ms),
         "plain_ms": min(score_plain_ms),
@@ -1093,7 +1477,7 @@ def main():
         "route": "cuda",
         "source": "dream_tpu_torch/csrc/warp_kernel.cu",
         "replaces": "dream_tpu/ops/pallas_warp.py:74",
-        "launches": train_launches["warp_kernel"],
+        "launches": workflow["launches"]["warp_kernel"],
         "max_abs_err": warp_err,
         "ms": min(warp_device_ms),
         "plain_ms": min(warp_plain_ms),
@@ -1106,13 +1490,14 @@ def main():
         "route": "cuda",
         "source": "dream_tpu_torch/csrc/conv_int8_kernel.cu",
         "replaces": "dream_tpu/ops/pallas_conv.py:98",
-        "launches": int8_launches["conv_int8_kernel"],
+        "launches": workflow["launches"]["conv_int8_kernel"],
         "max_abs_err": max(conv_cases.values()),
         "ms": chain_ms,
         "plain_ms": chain_plain_ms,
         "bound_ms": conv_bound,
         "bound_by": conv_bound_by,
         "library_ms": chain_library_ms,
+        "library_ms_with_im2col": chain_library_im2col_ms,
         "redesigned_in": "second design: wgmma on TMA-fed tiles",
     }]
     print(json.dumps({"kernels": kernels}), flush=True)

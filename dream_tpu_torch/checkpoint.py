@@ -204,11 +204,10 @@ def params_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
                 continue
             arr = np.asarray(leaf).astype(np.float32)
             if name == "kernel" and arr.ndim == 4:
-                if _is_transposed(prefix):
-                    arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)
-                else:
-                    arr = arr.transpose(3, 2, 0, 1)
-                state[prefix + "weight"] = torch.from_numpy(np.ascontiguousarray(arr))
+                # torch's strided copies are threaded; numpy's are not.
+                t = torch.from_numpy(arr)
+                t = t.flip(0, 1).permute(2, 3, 0, 1) if _is_transposed(prefix) else t.permute(3, 2, 0, 1)
+                state[prefix + "weight"] = t.contiguous()
             elif name in ("bias", "scale") and arr.ndim == 1:
                 leaf_name = "weight" if name == "scale" else "bias"
                 state[prefix + leaf_name] = torch.from_numpy(np.ascontiguousarray(arr))
@@ -235,23 +234,25 @@ def params_to_flax(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     The inverse of :func:`params_from_flax`: ``a.b.weight`` (OIHW) becomes
     ``a/b/kernel`` (HWIO; a transposed conv's ``[in, out, kh, kw]`` flipped
     back), a 1-D ``weight`` BatchNorm's ``scale``, ``bias`` keeps its name,
-    every leaf a C-order float32 numpy array; returns ``{"params": {...}}``.
-    Buffers belong to :func:`batch_stats_to_flax`.
+    every leaf a C-order float32 numpy array that owns its memory (a
+    snapshot, whatever device ``state`` is on); returns
+    ``{"params": {...}}``.  Buffers belong to :func:`batch_stats_to_flax`.
     """
     params: Dict[str, Any] = {}
     for name, tensor in state.items():
         *path, leaf = name.split(".")
-        arr = tensor.detach().to("cpu", torch.float32).numpy()
-        if leaf == "weight" and arr.ndim == 4:
+        t = tensor.detach().to("cpu", torch.float32)
+        if leaf == "weight" and t.ndim == 4:
+            # torch's strided copies are threaded; numpy's are not.
             if _is_transposed(name.rsplit(".", 1)[0]):
-                arr = arr.transpose(2, 3, 0, 1)[::-1, ::-1]
+                t = t.permute(2, 3, 0, 1).flip(0, 1)
             else:
-                arr = arr.transpose(2, 3, 1, 0)
-            _set(params, path, "kernel", np.ascontiguousarray(arr))
-        elif leaf in ("weight", "bias") and arr.ndim == 1:
-            _set(params, path, "scale" if leaf == "weight" else "bias", np.ascontiguousarray(arr))
+                t = t.permute(2, 3, 1, 0)
+            _set(params, path, "kernel", t.clone(memory_format=torch.contiguous_format).numpy())
+        elif leaf in ("weight", "bias") and t.ndim == 1:
+            _set(params, path, "scale" if leaf == "weight" else "bias", t.numpy().copy())
         else:
-            raise ValueError(f"torch leaf {name} {tuple(arr.shape)} has no flax counterpart")
+            raise ValueError(f"torch leaf {name} {tuple(t.shape)} has no flax counterpart")
     return {"params": params}
 
 
@@ -415,3 +416,56 @@ def msgpack_serialize(tree: Dict[str, Any]) -> bytes:
 def save_flax_checkpoint(path: str, tree: Dict[str, Any]) -> None:
     with open(path, "wb") as f:
         f.write(msgpack_serialize(tree))
+
+
+def optimizer_state_to_flax(optimizer_config: Dict[str, Any], named_parameters,
+                            optimizer: torch.optim.Optimizer, steps: int) -> Dict[str, Any]:
+    """The tree ``flax.serialization.to_bytes`` writes for the optax state
+    ``dream_tpu`` builds from ``optimizer_config`` (``network.py:394-435``),
+    from the torch optimizer after ``steps`` steps.
+
+    ``optax.adam(lr)`` is ``chain(scale_by_adam, scale_by_learning_rate)``:
+    ``{"0": {"count", "mu", "nu"}, "1": {}}``, where ``"1"`` holds
+    ``{"count"}`` under a schedule; ``optax.sgd`` has ``{}`` in place of
+    Adam's state.  Global-norm clipping chains its empty state in front:
+    ``{"0": {}, "1": <the above>}``.  ``mu`` and ``nu`` are torch Adam's
+    ``exp_avg`` and ``exp_avg_sq`` in the parameters' flax layout; counts are
+    0-d int32.  ``named_parameters`` is ``model.named_parameters()``.
+    """
+    count = np.asarray(steps, dtype=np.int32)
+    if optimizer_config["type"] == "adam":
+        mu, nu = {}, {}
+        for name, p in named_parameters:
+            state = optimizer.state.get(p, {})
+            mu[name] = state.get("exp_avg", torch.zeros_like(p))
+            nu[name] = state.get("exp_avg_sq", torch.zeros_like(p))
+        first = {"count": count, "mu": params_to_flax(mu)["params"], "nu": params_to_flax(nu)["params"]}
+    else:
+        first = {}
+    tree = {"0": first, "1": {"count": count} if optimizer_config.get("schedule") else {}}
+    if optimizer_config.get("grad_clip_norm"):
+        tree = {"0": {}, "1": tree}
+    return tree
+
+
+def optimizer_state_from_flax(tree: Dict[str, Any], optimizer_config: Dict[str, Any],
+                              named_parameters, optimizer: torch.optim.Optimizer) -> Optional[int]:
+    """Load an optax state tree (:func:`optimizer_state_to_flax`'s layout,
+    read from an ``.opt.msgpack``) into the torch optimizer.  Returns the
+    step count the tree holds, ``None`` for plain SGD, whose state holds
+    none."""
+    if optimizer_config.get("grad_clip_norm"):
+        tree = tree["1"]
+    counts = [int(node["count"]) for node in (tree["0"], tree["1"]) if "count" in node]
+    if optimizer_config["type"] == "adam":
+        mu = params_from_flax({"params": tree["0"]["mu"]})
+        nu = params_from_flax({"params": tree["0"]["nu"]})
+        index = {id(p): i for i, p in enumerate(q for group in optimizer.param_groups
+                                                  for q in group["params"])}
+        state = optimizer.state_dict()
+        step = torch.tensor(float(counts[0]))
+        for name, p in named_parameters:
+            state["state"][index[id(p)]] = {"step": step.clone(), "exp_avg": mu[name].clone(),
+                                            "exp_avg_sq": nu[name].clone()}
+        optimizer.load_state_dict(state)
+    return counts[0] if counts else None

@@ -1,1 +1,1 @@
-"""Data of the port: in-memory synthetic frames."""
+"""Data of the port: synthetic frames, NDDS datasets on disk and their loaders."""

@@ -1,14 +1,23 @@
-"""The device-side batch transform of training: raw frames -> a training batch.
+"""NDDS datasets on disk, their loaders, and the device-side batch transform.
 
-Port of ``dream_tpu/data/dataset.py:295-347`` (``make_batch_processor``)
-and of ``:528-562`` (``collect_calibration_batches``) over frames in
-memory.  The NDDS-on-disk reader and the loaders of that module are not
-ported yet.
+Port of ``dream_tpu/data/dataset.py``.  The host decodes PNG frames with a
+thread pool (:mod:`dream_tpu_torch.utils.png`; zlib releases the GIL),
+parses keypoints once, shuffles, batches and prefetches
+(:class:`ManipulatorNDDSDataset`, :class:`DataLoader`); or it decodes the
+set once and keeps it on the card as uint8 (:class:`DeviceCachedLoader`),
+so batches become gathers there.  Everything after the decode runs on the
+device in :func:`make_batch_processor`: preprocessing, augmentation,
+normalization, keypoint frame conversion and the belief maps.  The shuffle
+order, the train/validation split and the calibration batches follow the
+JAX package's numpy ``RandomState`` draws, so a seed gives the same
+batches in both packages.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Tuple
+import concurrent.futures
+import enum
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -17,6 +26,222 @@ from dream_tpu_torch.data.augment import DEFAULT_AUGMENT, AugmentConfig, augment
 from dream_tpu_torch.ops import coords as coord_ops
 from dream_tpu_torch.ops.belief_maps import create_belief_maps
 from dream_tpu_torch.ops.image_proc import normalize_images, preprocess_images
+from dream_tpu_torch.utils import ndds as ndds_utils
+from dream_tpu_torch.utils.png import read_png
+from dream_tpu_torch.utils.resolutions import KNOWN_IMAGE_PREPROC_TYPES
+
+
+class ManipulatorNDDSDatasetDebugLevels(enum.IntEnum):
+    """``dream_tpu``'s debug levels.  NONE and LIGHT behave alike here; the
+    HEAVY and INTERACTIVE dumps draw overlays through the visualization
+    module, which the port has not yet, and the dataset refuses them."""
+
+    NONE = 0
+    LIGHT = 1
+    HEAVY = 2
+    INTERACTIVE = 3
+
+
+class ManipulatorNDDSDataset:
+    """Host-side index over an NDDS dataset (``dream_tpu/data/dataset.py:52``).
+
+    ``ndds_dataset`` is a directory or the pair
+    :func:`dream_tpu_torch.utils.ndds.find_ndds_data_in_dir` returns.  The
+    keypoints of every frame are parsed at construction (float32
+    ``kp_projs_raw [N, n_kp, 2]`` and ``kp_positions [N, n_kp, 3]``); images
+    are decoded per batch by ``n_decode_threads`` threads.
+    """
+
+    def __init__(
+        self,
+        ndds_dataset,
+        manipulator_name: str,
+        keypoint_names: Sequence[str],
+        network_input_resolution: Tuple[int, int],
+        network_output_resolution: Tuple[int, int],
+        image_normalization: Optional[dict] = None,
+        image_preprocessing: str = "shrink-and-crop",
+        augment_data: bool = False,
+        include_ground_truth: bool = True,
+        include_belief_maps: bool = False,
+        debug_mode: int = ManipulatorNDDSDatasetDebugLevels.NONE,
+        n_decode_threads: int = 8,
+    ):
+        if debug_mode >= ManipulatorNDDSDatasetDebugLevels.HEAVY:
+            raise NotImplementedError(
+                "HEAVY and INTERACTIVE debug dumps need the visualization module, which the "
+                "port has not yet (ROADMAP.md section 1)"
+            )
+        if include_belief_maps and not include_ground_truth:
+            raise ValueError('If "include_belief_maps" is True, "include_ground_truth" must also be True.')
+        if image_preprocessing not in KNOWN_IMAGE_PREPROC_TYPES:
+            raise ValueError(f'Image preprocessing type "{image_preprocessing}" is not recognized.')
+        if isinstance(ndds_dataset, str):
+            ndds_dataset = ndds_utils.find_ndds_data_in_dir(ndds_dataset)
+        self.ndds_dataset_data, self.ndds_dataset_config = ndds_dataset
+        self.manipulator_name = manipulator_name
+        self.keypoint_names = list(keypoint_names)
+        self.network_input_resolution = tuple(network_input_resolution)
+        self.network_output_resolution = tuple(network_output_resolution)
+        self.image_normalization = image_normalization
+        self.image_preprocessing = image_preprocessing
+        self.augment_data = augment_data
+        self.include_ground_truth = include_ground_truth
+        self.include_belief_maps = include_belief_maps
+        self.debug_mode = debug_mode
+        self._n_decode_threads = n_decode_threads
+
+        n, n_kp = len(self.ndds_dataset_data), len(self.keypoint_names)
+        self.kp_projs_raw = np.zeros((n, n_kp, 2), dtype=np.float32)
+        self.kp_positions = np.zeros((n, n_kp, 3), dtype=np.float32)
+        if include_ground_truth:
+            for i, datum in enumerate(self.ndds_dataset_data):
+                kp = ndds_utils.load_keypoints(datum["data_path"], manipulator_name, self.keypoint_names)
+                self.kp_projs_raw[i] = np.asarray(kp["projections"], dtype=np.float32)
+                self.kp_positions[i] = np.asarray(kp["positions_wrt_cam"], dtype=np.float32)
+
+        if self.ndds_dataset_config and self.ndds_dataset_config.get("camera"):
+            self.image_raw_resolution = ndds_utils.load_image_resolution(
+                self.ndds_dataset_config["camera"])
+        else:
+            im = self._decode(0)
+            self.image_raw_resolution = (im.shape[1], im.shape[0])
+
+    def __len__(self) -> int:
+        return len(self.ndds_dataset_data)
+
+    def _decode(self, index: int) -> np.ndarray:
+        return read_png(self.ndds_dataset_data[index]["image_paths"]["rgb"])
+
+    def load_images(self, indices: Sequence[int]) -> np.ndarray:
+        """Decode a batch of raw-resolution uint8 frames ``[B, H, W, 3]``."""
+        with concurrent.futures.ThreadPoolExecutor(max_workers=self._n_decode_threads) as pool:
+            return np.stack(list(pool.map(self._decode, [int(i) for i in indices])))
+
+    def host_batch(self, indices: Sequence[int]) -> Dict[str, np.ndarray]:
+        """What the device transform needs, as host numpy arrays."""
+        batch = {"image_rgb_raw": self.load_images(indices),
+                 "indices": np.asarray(indices, dtype=np.int32)}
+        if self.include_ground_truth:
+            batch["keypoint_projections_raw"] = self.kp_projs_raw[indices]
+            batch["keypoint_positions"] = self.kp_positions[indices]
+        return batch
+
+    def sample_names(self, indices: Sequence[int]) -> List[str]:
+        return [self.ndds_dataset_data[int(i)]["name"] for i in indices]
+
+
+def _batch_count(n: int, batch_size: int, drop_last: bool) -> int:
+    return n // batch_size if drop_last else -(-n // batch_size)
+
+
+def _epoch_order(n: int, shuffle: bool, seed: int, epoch: int) -> np.ndarray:
+    """Positions ``0..n-1``, shuffled by ``RandomState(seed + epoch)`` as
+    ``dream_tpu``'s loaders shuffle them."""
+    order = np.arange(n, dtype=np.int64)
+    if shuffle:
+        np.random.RandomState(seed + epoch).shuffle(order)
+    return order
+
+
+class DataLoader:
+    """Shuffling, batching iterator of host batches with one batch decoded
+    ahead on a background thread (``dream_tpu/data/dataset.py:350-413``)."""
+
+    def __init__(self, dataset: ManipulatorNDDSDataset, batch_size: int, shuffle: bool = True,
+                 seed: int = 0, drop_last: bool = True, indices: Optional[Sequence[int]] = None):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.drop_last = drop_last
+        self.indices = (np.asarray(indices, dtype=np.int64) if indices is not None
+                        else np.arange(len(dataset), dtype=np.int64))
+        self._epoch = 0
+
+    def __len__(self) -> int:
+        return _batch_count(len(self.indices), self.batch_size, self.drop_last)
+
+    def set_epoch(self, epoch: int) -> None:
+        self._epoch = epoch
+
+    def _batches(self) -> List[np.ndarray]:
+        order = self.indices[_epoch_order(len(self.indices), self.shuffle, self.seed, self._epoch)]
+        return [order[i * self.batch_size : (i + 1) * self.batch_size] for i in range(len(self))]
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        batches = self._batches()
+        if not batches:
+            return
+        # The pool shuts down when iteration is abandoned early too: closing
+        # the generator raises GeneratorExit here and runs __exit__.
+        with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+            future = pool.submit(self.dataset.host_batch, batches[0])
+            for i in range(len(batches)):
+                batch = future.result()
+                if i + 1 < len(batches):
+                    future = pool.submit(self.dataset.host_batch, batches[i + 1])
+                yield batch
+
+
+class DeviceCachedLoader:
+    """The dataset decoded once and held on ``device`` as uint8 (frames and
+    key points), batches served as gathers there
+    (``dream_tpu/data/dataset.py:414-516``).  Iterates like
+    :class:`DataLoader`; ``indices`` in a batch stay host numpy."""
+
+    def __init__(self, dataset: ManipulatorNDDSDataset, batch_size: int, shuffle: bool = True,
+                 seed: int = 0, drop_last: bool = True, indices: Optional[Sequence[int]] = None,
+                 chunk: int = 64, device: Any = "cuda"):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.drop_last = drop_last
+        self.indices = (np.asarray(indices, dtype=np.int64) if indices is not None
+                        else np.arange(len(dataset), dtype=np.int64))
+        self._epoch = 0
+        # Decoded in chunks to bound host memory.
+        parts = [torch.from_numpy(dataset.load_images(self.indices[i : i + chunk])).to(device)
+                 for i in range(0, len(self.indices), chunk)]
+        self.device_images = torch.cat(parts) if len(parts) > 1 else parts[0]
+        self.device_kp_projs = torch.from_numpy(dataset.kp_projs_raw[self.indices]).to(device)
+        self.device_kp_positions = torch.from_numpy(dataset.kp_positions[self.indices]).to(device)
+
+    def __len__(self) -> int:
+        return _batch_count(len(self.indices), self.batch_size, self.drop_last)
+
+    def set_epoch(self, epoch: int) -> None:
+        self._epoch = epoch
+
+    def epoch_order(self, epoch: int) -> np.ndarray:
+        """The seeded permutation of positions this loader uses for ``epoch``."""
+        return _epoch_order(len(self.indices), self.shuffle, self.seed, epoch)
+
+    def epoch_index_matrix(self, epoch: int) -> np.ndarray:
+        """``[n_steps, batch]`` positions into the cached tensors for
+        ``epoch``, full rows only: the input of ``train_epoch_raw``."""
+        n_steps = len(self.indices) // self.batch_size
+        return self.epoch_order(epoch)[: n_steps * self.batch_size].reshape(n_steps, self.batch_size)
+
+    def __iter__(self):
+        order = self.epoch_order(self._epoch)
+        for i in range(len(self)):
+            sel = order[i * self.batch_size : (i + 1) * self.batch_size]
+            sel_dev = torch.from_numpy(sel).to(self.device_images.device)
+            batch = {"image_rgb_raw": self.device_images[sel_dev],
+                     "indices": self.indices[sel].astype(np.int32)}
+            if self.dataset.include_ground_truth:
+                batch["keypoint_projections_raw"] = self.device_kp_projs[sel_dev]
+                batch["keypoint_positions"] = self.device_kp_positions[sel_dev]
+            yield batch
+
+
+def split_indices(n: int, training_fraction: float, seed: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Seed-pinned train/valid split (``dream_tpu/data/dataset.py:517``)."""
+    order = np.random.RandomState(seed).permutation(n)
+    n_train = int(round(n * training_fraction))
+    return order[:n_train], order[n_train:]
 
 
 def make_batch_processor(
@@ -77,22 +302,30 @@ def make_batch_processor(
     return process
 
 
-def collect_calibration_batches(frames: np.ndarray, process: Callable[..., Dict[str, torch.Tensor]],
-                                n_frames: int, batch_size: int = 16) -> List[torch.Tensor]:
+def collect_calibration_batches(source, process: Callable[..., Dict[str, torch.Tensor]],
+                                n_frames: int, batch_size: int = 16,
+                                indices: Optional[Sequence[int]] = None) -> List[torch.Tensor]:
     """Net-input batches of at least ``n_frames`` frames for int8 calibration.
 
-    ``frames`` is uint8 ``[F, H, W, 3]``; batches of ``batch_size`` are taken
-    from its head in order, the last one kept even when short, and run
-    through ``process`` (a non-augmenting :func:`make_batch_processor`
-    closure, fed placeholder key points) until ``n_frames`` are reached.
-    Returns the ``image_rgb_input`` batches.
+    ``source`` is uint8 frames ``[F, H, W, 3]`` or a
+    :class:`ManipulatorNDDSDataset`; batches of ``batch_size`` are taken
+    from its head (or the head of ``indices``) in order, the last one kept
+    even when short, and run through ``process`` (a non-augmenting
+    :func:`make_batch_processor` closure, fed placeholder key points) until
+    ``n_frames`` are reached.  Returns the ``image_rgb_input`` batches.
     """
     if batch_size <= 0:
         raise ValueError("batch_size must be positive")
+    if isinstance(source, ManipulatorNDDSDataset):
+        loader = DataLoader(source, batch_size, shuffle=False, drop_last=False, indices=indices)
+        raw_batches = (b["image_rgb_raw"] for b in loader)
+    else:
+        frames = source if indices is None else source[np.asarray(indices)]
+        raw_batches = (frames[s : s + batch_size] for s in range(0, len(frames), batch_size))
     batches: List[torch.Tensor] = []
     n = 0
-    for start in range(0, len(frames), batch_size):
-        images = torch.as_tensor(np.asarray(frames[start : start + batch_size], dtype=np.uint8))
+    for raw in raw_batches:
+        images = torch.as_tensor(np.asarray(raw, dtype=np.uint8))
         kp_raw = torch.zeros((images.shape[0], 1, 2), dtype=torch.float32)
         batches.append(process(None, images, kp_raw)["image_rgb_input"])
         n += images.shape[0]

@@ -1,20 +1,24 @@
-"""Synthetic manipulator frames, rendered in memory.
+"""Synthetic manipulator frames, in memory and as an NDDS dataset on disk.
 
 A numpy copy of ``dream_tpu/data/synthetic.py``: a chain of 3D keypoints
 posed rigidly with a random camera transform and rendered as anti-aliased
-disks and limb segments over a noisy background.  The JAX package writes
-these frames to disk as an NDDS dataset (PNG + JSON); here
-:func:`generate_synthetic_frames` returns them in memory with the same
-random stream, so for a seed it yields the very frames, projections and
-camera-frame keypoints that ``generate_synthetic_ndds`` writes (PNG is
-lossless), with no PIL and no files.
+disks and limb segments over a noisy background.
+:func:`generate_synthetic_ndds` writes the frames as an NDDS dataset (PNG +
+JSON) through the port's PNG writer, and :func:`generate_synthetic_frames`
+returns the same frames in memory; both draw from one random stream, so for
+a seed they give the very frames, projections and camera-frame keypoints
+that ``dream_tpu``'s ``generate_synthetic_ndds`` writes, with no PIL.
 """
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
+
+from dream_tpu_torch.utils.png import write_png
 
 DEFAULT_KEYPOINT_NAMES = [
     "panda_link0",
@@ -49,9 +53,8 @@ def chain_points(n_keypoints: int) -> np.ndarray:
     """Deterministic [n, 3] keypoint chain for any keypoint count.
 
     The single source of truth for the synthetic manipulator geometry, used
-    by both :func:`render_random_scene` and :func:`generate_synthetic_ndds`
-    (previously the former truncated to 7 points while the latter
-    extrapolated — inconsistent for kuka/baxter-scale counts).  The first 7
+    by :func:`render_random_scene`, :func:`generate_synthetic_frames` and
+    :func:`generate_synthetic_ndds`.  The first 7
     points are the panda-like canonical chain; further points (kuka's 8,
     baxter's 17 — reference manip_configs/{kuka,baxter}.yaml) continue along
     a gentle helix so no subset of keypoints is collinear (collinear
@@ -252,9 +255,7 @@ def render_random_scene(
     callers that stream frames (e.g. encoder self-pretraining,
     scripts/pretrain_encoder.py) instead of materializing a dataset.
     """
-    w, h = image_resolution
-    fx = fy = 0.96 * w
-    K = np.array([[fx, 0, w / 2.0], [0, fy, h / 2.0], [0, 0, 1.0]])
+    K = _camera_K(image_resolution)
     chain = chain_points(n_keypoints)
     zs = _camera_distance_scale(chain)
     R = _rotation_matrix(rng)
@@ -279,6 +280,24 @@ def render_random_scene(
     return img, kp_projs, Xc
 
 
+def _posed_frames(n_frames, image_resolution, n_keypoints, seed, out_of_frame_fraction,
+                  domain_randomization):
+    """The synthetic set's frames in order, each ``(image_u8, kp_projs, Xc)``
+    from :func:`render_random_scene` on one ``RandomState(seed)`` stream, as
+    ``dream_tpu.data.synthetic.generate_synthetic_ndds`` draws them (its
+    first ``out_of_frame_fraction`` of frames pushed partly out of view)."""
+    rng = np.random.RandomState(seed)
+    for idx in range(n_frames):
+        yield render_random_scene(rng, image_resolution, n_keypoints,
+                                  out_of_frame=idx < int(n_frames * out_of_frame_fraction),
+                                  domain_randomization=domain_randomization)
+
+
+def _camera_K(image_resolution: Tuple[int, int]) -> np.ndarray:
+    w, h = image_resolution
+    return np.array([[0.96 * w, 0, w / 2.0], [0, 0.96 * w, h / 2.0], [0, 0, 1.0]])
+
+
 def generate_synthetic_frames(
     n_frames: int = 32,
     image_resolution: Tuple[int, int] = (640, 480),
@@ -287,7 +306,7 @@ def generate_synthetic_frames(
     out_of_frame_fraction: float = 0.1,
     domain_randomization: bool = False,
 ) -> Dict[str, np.ndarray]:
-    """In-memory counterpart of ``generate_synthetic_ndds``.
+    """In-memory counterpart of :func:`generate_synthetic_ndds`.
 
     Returns ``images`` uint8 ``[F, H, W, 3]``, ``projections`` ``[F, n, 2]``
     (raw-frame pixels), ``positions`` ``[F, n, 3]`` (camera frame, m) and
@@ -295,37 +314,79 @@ def generate_synthetic_frames(
     holdout of scripts/reproduce_headline.sh.
     """
     keypoint_names = list(keypoint_names or DEFAULT_KEYPOINT_NAMES)
-    chain = chain_points(len(keypoint_names))
-    zs = _camera_distance_scale(chain)
-    w, h = image_resolution
-    fx = fy = 0.96 * w
-    K = np.array([[fx, 0, w / 2.0], [0, fy, h / 2.0], [0, 0, 1.0]])
-    rng = np.random.RandomState(seed)
-    images, projections, positions = [], [], []
-    for idx in range(n_frames):
-        R = _rotation_matrix(rng)
-        if idx < int(n_frames * out_of_frame_fraction):
-            t = np.array(
-                [rng.uniform(0.5, 0.9), rng.uniform(-0.1, 0.1),
-                 rng.uniform(1.0 * zs, 1.6 * zs)]
-            )
-        else:
-            t = np.array(
-                [rng.uniform(-0.25, 0.25), rng.uniform(-0.2, 0.2),
-                 rng.uniform(1.2 * zs, 2.6 * zs)]
-            )
-        Xc = (chain - chain.mean(axis=0)) @ R.T + t
-        proj = Xc @ K.T
-        kp_projs = proj[:, :2] / proj[:, 2:3]
-        images.append(
-            _render_frame(image_resolution, kp_projs, Xc[:, 2], rng,
-                          domain_randomization=domain_randomization)
-        )
-        projections.append(kp_projs)
-        positions.append(Xc)
+    frames = list(_posed_frames(n_frames, image_resolution, len(keypoint_names), seed,
+                                out_of_frame_fraction, domain_randomization))
+    images, projections, positions = zip(*frames)
     return {
         "images": np.stack(images),
         "projections": np.stack(projections),
         "positions": np.stack(positions),
-        "camera_K": K,
+        "camera_K": _camera_K(image_resolution),
     }
+
+
+def generate_synthetic_ndds(
+    output_dir: str,
+    n_frames: int = 32,
+    image_resolution: Tuple[int, int] = (640, 480),
+    keypoint_names: Optional[Sequence[str]] = None,
+    object_class: str = "panda",
+    seed: int = 0,
+    out_of_frame_fraction: float = 0.1,
+    image_extension: str = "png",
+    domain_randomization: bool = False,
+) -> str:
+    """Write a synthetic NDDS dataset and return its path.
+
+    Port of ``dream_tpu/data/synthetic.py:288-382``: the same files
+    (``NNNNNN.rgb.png``, ``NNNNNN.json``, ``_camera_settings.json``,
+    ``_object_settings.json``) with the same keys and float values, the
+    frames from the renderer :func:`generate_synthetic_frames` uses, so a
+    frame on disk decodes to the frame in memory (PNG is lossless).  Only
+    PNG is written.
+    """
+    if image_extension != "png":
+        raise ValueError(f"the port writes PNG frames only, not {image_extension!r}")
+    os.makedirs(output_dir, exist_ok=True)
+    keypoint_names = list(keypoint_names or DEFAULT_KEYPOINT_NAMES)
+    w, h = image_resolution
+    K = _camera_K(image_resolution)
+    camera_settings = {
+        "camera_settings": [
+            {
+                "name": "synthetic",
+                "intrinsic_settings": {
+                    "fx": K[0, 0], "fy": K[1, 1], "cx": K[0, 2], "cy": K[1, 2], "s": 0,
+                },
+                "captured_image_size": {"width": w, "height": h},
+            }
+        ]
+    }
+    with open(os.path.join(output_dir, "_camera_settings.json"), "w") as f:
+        json.dump(camera_settings, f, indent=2)
+    with open(os.path.join(output_dir, "_object_settings.json"), "w") as f:
+        json.dump({"exported_objects": [{"class": object_class}]}, f, indent=2)
+
+    frames = _posed_frames(n_frames, image_resolution, len(keypoint_names), seed,
+                           out_of_frame_fraction, domain_randomization)
+    for idx, (image, kp_projs, Xc) in enumerate(frames):
+        name = f"{idx:06d}"
+        write_png(os.path.join(output_dir, f"{name}.rgb.png"), image)
+        frame_data = {
+            "objects": [
+                {
+                    "class": object_class,
+                    "keypoints": [
+                        {
+                            "name": kp_name,
+                            "location": Xc[i].tolist(),
+                            "projected_location": kp_projs[i].tolist(),
+                        }
+                        for i, kp_name in enumerate(keypoint_names)
+                    ],
+                }
+            ]
+        }
+        with open(os.path.join(output_dir, f"{name}.json"), "w") as f:
+            json.dump(frame_data, f)
+    return output_dir

@@ -9,7 +9,11 @@ optimizer with its schedule and global-norm clipping (``:394-435``), the
 train steps with BatchNorm's running statistics (``:437-460``), the EMA
 (``:512-532``) and the evaluation loss; quantization-aware training of the
 vgg hourglasses (``quant_mode: qat``) and int8 inference of vgg-Q
-(``enable_int8_inference``, ``:796-969``).  The model computes in the
+(``enable_int8_inference``, ``:796-969``); the decode's peak scores
+for the robust PnP modes (``inference_detailed``, ``:984-1028``); and
+warm starts from a pretrained encoder (``init_encoder_from``,
+``:1116-1145``) and, across packages, from an optax optimizer state
+(``optimizer_state``, ``load_optimizer_state``).  The model computes in the
 config's ``compute_dtype``, float32 or bfloat16, with float32 parameters,
 as the JAX package does.  The soft-argmax head is not ported yet.
 Peak decoding runs in the CUDA score kernel, the augmentation's warp in
@@ -33,6 +37,9 @@ import torch
 
 from dream_tpu_torch.checkpoint import (
     load_flax_checkpoint,
+    optimizer_state_from_flax,
+    optimizer_state_to_flax,
+    params_from_flax,
     save_flax_checkpoint,
     state_from_flax,
     state_to_flax,
@@ -40,6 +47,7 @@ from dream_tpu_torch.checkpoint import (
 from dream_tpu_torch.models import DreamHourglass, DreamHourglassMultiStage, ResnetSimple
 from dream_tpu_torch.models import quant as quant_ops
 from dream_tpu_torch.models import vgg_int8_deploy
+from dream_tpu_torch.models.pretrain import graft_encoder_params
 from dream_tpu_torch.ops import belief_maps as bm_ops
 from dream_tpu_torch.ops import coords as coord_ops
 from dream_tpu_torch.ops import image_proc as image_proc_ops
@@ -230,6 +238,8 @@ class DreamNetwork:
         self.criterion = criterion_from_config(arch["loss"])
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.scheduler: Optional[torch.optim.lr_scheduler.LambdaLR] = None
+        self._lr_factor: Optional[Callable[[int], float]] = None
+        self.steps = 0  # optimizer steps taken, optax's ``count``
         self._clip_norm: Optional[float] = None
         self._batch_processor: Optional[Callable] = None
         self.ema_decay: Optional[float] = None
@@ -262,10 +272,12 @@ class DreamNetwork:
             net_input_resolution, self.architecture_type, **self._arch_kwargs
         )
 
-    def net_resolutions_from_image_raw_resolution(self, image_raw_resolution):
+    def net_resolutions_from_image_raw_resolution(self, image_raw_resolution,
+                                                  image_preprocessing_override: Optional[str] = None):
         """Parity: reference dream/network.py:368-395."""
         net_input_resolution = res_utils.resolution_after_preprocessing(
-            image_raw_resolution, self.trained_net_input_resolution(), self.image_preprocessing()
+            image_raw_resolution, self.trained_net_input_resolution(),
+            image_preprocessing_override or self.image_preprocessing()
         )
         return net_input_resolution, self.net_output_resolution_from_input_resolution(
             net_input_resolution
@@ -294,6 +306,22 @@ class DreamNetwork:
         storage is widened to float32, ``dream_tpu/network.py:1146-1156``)."""
         state = state_from_flax(load_flax_checkpoint(network_params_path))
         self.model.load_state_dict(state, strict=True)
+
+    def init_encoder_from(self, encoder_params_path: str) -> Tuple[int, int]:
+        """Warm-start from a flax msgpack file holding an encoder subtree
+        (``down1`` .. ``down5``) or a whole checkpoint: every leaf of a
+        same-named subtree whose shape matches is grafted
+        (:func:`dream_tpu_torch.models.pretrain.graft_encoder_params`).
+        Returns ``(n_grafted, n_skipped)`` leaf counts."""
+        state = self.model.state_dict()
+        params = state_to_flax(state)["params"]
+        merged, n_grafted, n_skipped = graft_encoder_params(
+            params, load_flax_checkpoint(encoder_params_path))
+        if n_grafted == 0:
+            raise ValueError(f"No encoder weights from {encoder_params_path} matched this model's "
+                             "parameters (wrong architecture?)")
+        self.model.load_state_dict({**state, **params_from_flax({"params": merged})}, strict=True)
+        return n_grafted, n_skipped
 
     def save_network_config(self, config_file_path: str, overwrite: bool = False) -> None:
         """Write the config, with ``compute_dtype`` the dtype that runs."""
@@ -349,9 +377,36 @@ class DreamNetwork:
                     value = warmup_cosine_decay(step, lr, warmup, decay, end)
                     return value / lr if lr else 0.0
 
+                self._lr_factor = factor
                 self.scheduler = torch.optim.lr_scheduler.LambdaLR(self.optimizer, factor)
             clip = ocfg.get("grad_clip_norm")
             self._clip_norm = float(clip) if clip else None
+
+    def optimizer_state(self) -> Dict[str, Any]:
+        """The optimizer's state as the optax state tree ``dream_tpu`` writes
+        to ``.opt.msgpack`` (:func:`dream_tpu_torch.checkpoint.optimizer_state_to_flax`),
+        numpy arrays on the host."""
+        if self.optimizer is None:
+            raise RuntimeError("Optimizer must be defined. Use enable_training() first.")
+        return optimizer_state_to_flax(self.network_config["training"]["config"]["optimizer"],
+                                       self.model.named_parameters(), self.optimizer, self.steps)
+
+    def load_optimizer_state(self, tree: Dict[str, Any]) -> None:
+        """Resume from an optax state tree: Adam's moments, the step count
+        and the schedule's position."""
+        self.enable_training()
+        count = optimizer_state_from_flax(tree, self.network_config["training"]["config"]["optimizer"],
+                                          self.model.named_parameters(), self.optimizer)
+        if count is None:
+            return
+        self.steps = count
+        if self.scheduler is not None:
+            lrs = [base * self._lr_factor(count) for base in self.scheduler.base_lrs]
+            state = self.scheduler.state_dict()
+            state.update(last_epoch=count, _step_count=count + 1, _last_lr=lrs)
+            self.scheduler.load_state_dict(state)
+            for group, lr in zip(self.optimizer.param_groups, lrs):
+                group["lr"] = lr
 
     def enable_ema(self, decay: float) -> None:
         """Keep an exponential moving average of the parameters, updated after
@@ -408,6 +463,7 @@ class DreamNetwork:
         if self._clip_norm is not None:
             clip_by_global_norm_([p.grad for p in params], self._clip_norm)
         self.optimizer.step()
+        self.steps += 1
         if self.scheduler is not None:
             self.scheduler.step()
         if self.ema_params is not None:
@@ -439,6 +495,17 @@ class DreamNetwork:
             torch.as_tensor(kp_projs_raw).to(self.device),
         )
         return self._step(batch["image_rgb_input"], batch["belief_maps"])
+
+    def train_epoch_raw(self, generator: Optional[torch.Generator], images: torch.Tensor,
+                        kp_projs_raw: torch.Tensor, index_matrix) -> torch.Tensor:
+        """One epoch over a set held on the device: a :meth:`train_raw` step
+        for each row of ``index_matrix`` (``[n_steps, batch]`` positions into
+        ``images`` and ``kp_projs_raw``, e.g.
+        ``DeviceCachedLoader.epoch_index_matrix``).  Returns the steps'
+        losses ``[n_steps]`` on the device."""
+        rows = torch.as_tensor(np.asarray(index_matrix), device=images.device)
+        losses = [self.train_raw(generator, images[row], kp_projs_raw[row]) for row in rows]
+        return torch.stack(losses) if losses else torch.zeros(0, device=images.device)
 
     @torch.no_grad()
     def loss(self, network_input_heads: Sequence[torch.Tensor], target: torch.Tensor,
@@ -478,13 +545,7 @@ class DreamNetwork:
 
     # --- inference (reference dream/network.py:503-590) ---
 
-    @torch.no_grad()
-    def inference(self, network_input: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``[B, h, w, 3]`` float net input (channels-last, as the JAX package)
-        -> ``(belief_maps [B, n_kp, h', w'], keypoints [B, n_kp, 2])`` in
-        the net-output frame, the last stage's maps in float32; the sentinel
-        marks no detection.  BatchNorm runs on its running statistics.  Runs
-        the int8 chain once :meth:`enable_int8_inference` has been called."""
+    def _belief_maps(self, network_input: torch.Tensor) -> torch.Tensor:
         if self.int8_chain is not None:
             belief = vgg_int8_deploy.run_int8_chain(
                 self.int8_chain, network_input.to(self.device, torch.float32), self.compute_dtype
@@ -493,14 +554,35 @@ class DreamNetwork:
             self.model.eval()
             belief = self._stage_outputs(network_input)[-1]
         # The decode (the score kernel) takes float32 maps.
-        belief = belief.to(torch.float32)
-        keypoints, _ = bm_ops.keypoints_from_belief_maps(
+        return belief.to(torch.float32)
+
+    def _keypoints(self, belief: torch.Tensor):
+        return bm_ops.keypoints_from_belief_maps(
             belief,
             self.peak_offset_due_to_upsampling(),
             use_belief_peak_scores=self.use_belief_peak_scores,
             belief_peak_next_best_score=self.belief_peak_next_best_score,
         )
-        return belief, keypoints
+
+    @torch.no_grad()
+    def inference(self, network_input: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``[B, h, w, 3]`` float net input (channels-last, as the JAX package)
+        -> ``(belief_maps [B, n_kp, h', w'], keypoints [B, n_kp, 2])`` in
+        the net-output frame, the last stage's maps in float32; the sentinel
+        marks no detection.  BatchNorm runs on its running statistics.  Runs
+        the int8 chain once :meth:`enable_int8_inference` has been called."""
+        belief = self._belief_maps(network_input)
+        return belief, self._keypoints(belief)[0]
+
+    @torch.no_grad()
+    def inference_detailed(self, network_input: torch.Tensor):
+        """:meth:`inference` plus each map's best peak score ``[B, n_kp]``
+        and that peak's net-output coordinates ``[B, n_kp, 2]``, kept even
+        where the score-gap disambiguation rejects it to the sentinel: the
+        inputs of confidence-weighted and soft-detection PnP."""
+        belief = self._belief_maps(network_input)
+        keypoints, peaks = self._keypoints(belief)
+        return belief, keypoints, peaks["scores"][..., 0], peaks["coords"][..., 0, :]
 
     def preprocess(self, images_u8: torch.Tensor) -> torch.Tensor:
         """uint8 ``[B, H, W, 3]`` frames -> normalized float net input on the device."""

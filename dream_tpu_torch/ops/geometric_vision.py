@@ -1,12 +1,15 @@
 """Batched Perspective-n-Point pose solving and pose-error metrics in torch.
 
-Port of the plain path of ``dream_tpu/ops/geometric_vision.py``: an EPnP
-initializer (beta cases 1 and 2) followed by multi-start damped
-Gauss-Newton (Levenberg-Marquardt) refinement of the 6-DoF pose on the
-reprojection residuals (``_solve_core`` at ``:278-369``, entry ``:372``).
-Every function takes a leading batch of frames: the JAX package vmaps over
-frames, here the batch dimension is written out.  RANSAC, outlier
-rejection and soft detections are not ported yet.
+Port of ``dream_tpu/ops/geometric_vision.py``: an EPnP initializer (beta
+cases 1 and 2) followed by multi-start damped Gauss-Newton
+(Levenberg-Marquardt) refinement of the 6-DoF pose on the reprojection
+residuals (``_solve_core`` at ``:278-369``, entry ``:372``), with its
+options: per-correspondence weights, single-start or no refinement,
+leave-one-out outlier rejection (``:446-502``), and RANSAC
+(:func:`solve_pnp_ransac`, ``:525-603``).  Every function takes a leading
+batch of frames: the JAX package vmaps over frames, here the batch
+dimension is written out, and the leave-one-out candidates and RANSAC's
+hypotheses join the frames in one batch dimension.
 
 Invalid or missing correspondences carry a 0 weight (sentinel ``<= -999``
 and non-finite projections are invalidated automatically); failure is data:
@@ -275,8 +278,11 @@ def _gauss_newton_pose(R0, t0, X, uv_norm, w, iters: int = 20, damping: float = 
     return rotation_matrix_from_axis_angle(params[:, :3]), params[:, 3:]
 
 
-def _solve_core(Xs, uv_norm, w, gn_iters: int = 20):
-    """EPnP candidates + 7-start damped Gauss-Newton -> (R [B,3,3], t [B,3])."""
+def _solve_core(Xs, uv_norm, w, refinement: bool = True, gn_iters: int = 20,
+                multi_start: bool = True):
+    """EPnP candidates, then 7-start damped Gauss-Newton (``multi_start``),
+    one Gauss-Newton from the better EPnP candidate (``refinement`` alone)
+    or none -> (R [B,3,3], t [B,3])."""
     B = Xs.shape[0]
     C = _control_points(Xs, w)
     alphas = _barycentric(Xs, C)
@@ -306,6 +312,10 @@ def _solve_core(Xs, uv_norm, w, gn_iters: int = 20):
     use1 = e1_cost <= e2_cost
     R0 = torch.where(use1[:, None, None], R1, R2)
     t0 = torch.where(use1[:, None], t1, t2)
+    if not refinement:
+        return R0, t0
+    if not multi_start:
+        return _gauss_newton_pose(R0, t0, Xs, uv_norm, w, iters=gn_iters)
 
     # Geometric front-facing starts: depth from the 3D/2D spread ratio.
     n_eff = (torch.sum(w, -1) + _EPS)[:, None]
@@ -342,8 +352,68 @@ def _solve_core(Xs, uv_norm, w, gn_iters: int = 20):
     return Rf.reshape(B, S, 3, 3)[idx, best], tf.reshape(B, S, 3)[idx, best]
 
 
+def _correspondence_weights(X, uv, weights):
+    """``[B, N]`` float weights: 0 for non-finite or sentinel (``<= -999``)
+    correspondences, else 1 times ``weights`` when given."""
+    valid = torch.isfinite(X).all(-1) & torch.isfinite(uv).all(-1) & (uv > -999.0).all(-1)
+    w = valid.to(torch.float32)
+    return w if weights is None else w * weights.to(w.device, torch.float32)
+
+
+def _pixel_errors(R, t, Xs, uv_norm, mask, focal):
+    """Unweighted per-point pixel reprojection error ``[B, N]``, zero where
+    ``mask`` is; ``focal`` is ``[B, 2]`` (fx, fy)."""
+    return _norm(_reproj_residuals(R, t, Xs, uv_norm, mask) * focal[:, None])
+
+
+def _reject_outliers(R, t, Xs, uv_norm, w, focal, threshold, refinement, gn_iters, multi_start):
+    """Leave-one-out rejection, three trips (``geometric_vision.py:446-502``).
+
+    On each trip, a frame whose worst valid residual exceeds ``threshold``
+    px and that keeps more than four points re-solves from scratch once
+    without each of its points, and drops the point whose removal leaves
+    the smallest worst residual.  Choosing by the worst residual itself
+    would be wrong: a gross outlier drags the pose until a good point
+    reprojects worst.  Only the frames that drop a point are solved again;
+    their candidates join the frames in one batch.  Returns the pose and
+    the surviving weights.
+    """
+    n_pts = w.shape[1]
+    eye = torch.eye(n_pts, dtype=w.dtype, device=w.device)
+    for _ in range(3):
+        err = _pixel_errors(R, t, Xs, uv_norm, (w > 0).to(w.dtype), focal)
+        worst = torch.max(torch.where(w > 0, err, float("-inf")), -1).values
+        drop = torch.nonzero((worst > threshold) & (torch.sum(w > 0, -1) > 4))[:, 0]
+        if drop.numel() == 0:
+            break
+        m = drop.numel()
+
+        def rep(x):
+            return x[drop, None].expand(m, n_pts, *x.shape[1:]).reshape(m * n_pts, *x.shape[1:])
+
+        w_loo = (w[drop, None, :] * (1.0 - eye)).reshape(m * n_pts, n_pts)
+        X_loo, uv_loo = rep(Xs), rep(uv_norm)
+        R_i, t_i = _solve_core(X_loo, uv_loo, w_loo, refinement, gn_iters, multi_start)
+        px = _pixel_errors(R_i, t_i, X_loo, uv_loo, (w_loo > 0).to(w.dtype), rep(focal))
+        cost = torch.max(torch.where(w_loo > 0, px, torch.zeros((), device=px.device)), -1).values
+        cost = torch.where(w[drop].reshape(-1) > 0, cost, float("inf")).reshape(m, n_pts)
+        best = torch.argmin(cost, dim=1)
+        pick = torch.arange(m, device=w.device) * n_pts + best
+        R, t, w = R.clone(), t.clone(), w.clone()
+        R[drop], t[drop] = R_i[pick], t_i[pick]
+        w[drop] = w[drop] * (1.0 - eye[best])
+    return R, t, w
+
+
 def solve_pnp(
-    canonical_points: torch.Tensor, projections: torch.Tensor, camera_K: torch.Tensor
+    canonical_points: torch.Tensor,
+    projections: torch.Tensor,
+    camera_K: torch.Tensor,
+    weights: Optional[torch.Tensor] = None,
+    refinement: bool = True,
+    gn_iters: int = 20,
+    multi_start: bool = True,
+    reject_outliers_px: Optional[float] = None,
 ) -> PnPResult:
     """EPnP + multi-start Gauss-Newton pose recovery for a batch of frames.
 
@@ -352,6 +422,13 @@ def solve_pnp(
       projections: ``[B, N, 2]`` detected pixel coords; sentinel (``<= -999``)
         and non-finite entries are invalidated.
       camera_K: ``[3, 3]`` or ``[B, 3, 3]`` intrinsics.
+      weights: optional ``[B, N]`` confidences multiplying the validity
+        mask; continuous values weight the least-squares residuals.
+      refinement, multi_start, gn_iters: Gauss-Newton from 7 starts
+        (default), from the EPnP pose only, or not at all.
+      reject_outliers_px: if set, leave-one-out rejection of points that
+        reproject worse than this (:func:`_reject_outliers`); the returned
+        error then counts the surviving points only.
 
     ``valid`` is False where fewer than 4 usable correspondences exist (cv2's
     minimum for EPnP) or the solve is not finite.
@@ -359,10 +436,7 @@ def solve_pnp(
     X = canonical_points.to(torch.float32)
     uv = projections.to(torch.float32)
     K = camera_K.to(torch.float32).expand(X.shape[0], 3, 3)
-    auto_valid = (
-        torch.isfinite(X).all(-1) & torch.isfinite(uv).all(-1) & (uv > -999.0).all(-1)
-    )
-    w = auto_valid.to(torch.float32)
+    w = _correspondence_weights(X, uv, weights)
     n_valid = torch.sum(w > 0, -1)
 
     # Normalized camera coordinates for conditioning.
@@ -371,15 +445,18 @@ def solve_pnp(
     uv_norm = torch.stack([(uv[..., 0] - cx) / fx, (uv[..., 1] - cy) / fy], -1)
     uv_norm = torch.where(w[..., None] > 0, uv_norm, torch.zeros((), device=uv.device))
     Xs = torch.where(w[..., None] > 0, X, torch.zeros((), device=X.device))
+    focal = torch.cat([fx, fy], -1)
 
     previous = torch.get_float32_matmul_precision()
     torch.set_float32_matmul_precision("highest")
     try:
-        R, t = _solve_core(Xs, uv_norm, w)
-        valid_mask = (w > 0).to(torch.float32)
-        res = _reproj_residuals(R, t, Xs, uv_norm, valid_mask)
-        px = res * torch.stack([fx, fy], -1)
-        err = _norm(px)
+        R, t = _solve_core(Xs, uv_norm, w, refinement, gn_iters, multi_start)
+        w_final = w
+        if reject_outliers_px is not None:
+            R, t, w_final = _reject_outliers(R, t, Xs, uv_norm, w, focal, reject_outliers_px,
+                                             refinement, gn_iters, multi_start)
+        valid_mask = (w_final > 0).to(torch.float32)
+        err = _pixel_errors(R, t, Xs, uv_norm, valid_mask, focal)
         mean_err = torch.sum(err * valid_mask, -1) / (torch.sum(valid_mask, -1) + _EPS)
     finally:
         torch.set_float32_matmul_precision(previous)
@@ -394,6 +471,73 @@ def solve_pnp(
         rotation=torch.where(v[..., None], R, _eye(R).expand_as(R)),
         reproj_error=torch.where(valid, mean_err, torch.full_like(mean_err, float("inf"))),
     )
+
+
+def ransac_subsets(valid: torch.Tensor, n_hypotheses: int = 64,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """``[B, n_hypotheses, 4]`` point indices: for each frame and hypothesis
+    four distinct points drawn uniformly among the valid ones of
+    ``valid [B, N]`` (invalid points only where fewer than four are valid),
+    as ``jax.random.choice`` without replacement under equal weights draws
+    them, from ``generator``'s stream on ``valid``'s device."""
+    B, N = valid.shape
+    u = torch.rand((B, n_hypotheses, N), generator=generator, device=valid.device)
+    u = torch.where(valid[:, None, :], u, u + 2.0)
+    return torch.argsort(u, dim=-1)[..., :4]
+
+
+def solve_pnp_ransac(
+    canonical_points: torch.Tensor,
+    projections: torch.Tensor,
+    camera_K: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    weights: Optional[torch.Tensor] = None,
+    inlier_thresh_px: float = 5.0,
+    n_hypotheses: int = 64,
+    gn_iters: int = 20,
+    subsets: Optional[torch.Tensor] = None,
+):
+    """Fixed-trip-count RANSAC PnP for a batch of frames
+    (``geometric_vision.py:525-603``).
+
+    Each frame's ``n_hypotheses`` minimal 4-point subsets (``subsets [B,
+    H, 4]`` when given, else :func:`ransac_subsets` from ``generator``)
+    are solved with one 8-iteration Gauss-Newton start each, frames and
+    hypotheses in one batch; each scores its inliers (pixel error under
+    ``inlier_thresh_px``); the frame is solved again on the best
+    hypothesis's inliers, and falls back to the plain solve on all points
+    when that fails.  Returns ``(PnPResult, inlier_mask [B, N])``.
+    """
+    X = canonical_points.to(torch.float32)
+    uv = projections.to(torch.float32)
+    K = camera_K.to(torch.float32).expand(X.shape[0], 3, 3)
+    B, N = X.shape[0], X.shape[1]
+    w = _correspondence_weights(X, uv, weights)
+    if subsets is None:
+        subsets = ransac_subsets(w > 0, n_hypotheses, generator)
+    H = subsets.shape[1]
+    pick = torch.zeros((B, H, N), device=X.device).scatter_(-1, subsets.to(X.device, torch.int64), 1.0)
+    sub_w = (pick * w[:, None]).reshape(B * H, N)
+
+    def rep(x):
+        return x[:, None].expand(B, H, *x.shape[1:]).reshape(B * H, *x.shape[1:])
+
+    Xr, uvr, Kr = rep(X), rep(uv), rep(K)
+    hyp = solve_pnp(Xr, uvr, Kr, weights=sub_w, refinement=True, gn_iters=8, multi_start=False)
+    cam = Xr @ hyp.rotation.transpose(-1, -2) + hyp.translation[:, None]
+    err = _norm(point_projection_from_3d(Kr, cam) - uvr)
+    inliers = ((err < inlier_thresh_px) & (rep(w) > 0)).reshape(B, H, N)
+    scores = torch.where(hyp.valid.reshape(B, H), torch.sum(inliers, -1), -1)
+    best_inliers = inliers[torch.arange(B, device=X.device), torch.argmax(scores, dim=1)]
+
+    final = solve_pnp(X, uv, K, weights=best_inliers.to(torch.float32), gn_iters=gn_iters)
+    # Consensus fallback: fewer than four inliers -> the all-point solve.
+    plain = solve_pnp(X, uv, K, weights=weights, gn_iters=gn_iters)
+    use = final.valid
+    merged = PnPResult(*(
+        torch.where(use.reshape((B,) + (1,) * (f.dim() - 1)), f, p) for f, p in zip(final, plain)
+    ))
+    return merged, torch.where(use[:, None], best_inliers, w > 0)
 
 
 def add_from_pose(

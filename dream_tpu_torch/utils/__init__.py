@@ -1,1 +1,1 @@
-"""Host-side utilities of the port: resolution algebra, YAML reading."""
+"""Host-side utilities of the port: resolution algebra, YAML, PNG, NDDS discovery."""
