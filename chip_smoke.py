@@ -5,7 +5,8 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-Phases, each ending with one JSON progress line on stdout:
+Phases, each ending with one JSON progress line on stdout (with the seconds
+since the script started, `elapsed_s`):
 
 1. the card's name and power limit, as nvidia-smi reports them;
 2. build the three CUDA kernels (dream_tpu_torch/csrc/score_kernel.cu,
@@ -134,12 +135,54 @@ Phases, each ending with one JSON progress line on stdout:
    CLI's epochs in images/s against train_raw (phases 7 and 16), and an
    epoch checkpoint's host snapshot and file writes.
 
+21. serving, live, on the phase-17 holdout on disk: make_http_server
+   in-process on 127.0.0.1 (a free port) serving vgg-Q r5 in its sidecar's
+   bf16, single-frame mode, one timed first request and two more warm-up
+   requests, then the port's client CLI as a subprocess (--rate 1000) over
+   the 64 frames: 64 image requests answered, the score kernel 64 times;
+   the score kernel bit for bit against its plain version at a request's
+   shapes (a served frame's [7, 100, 100] maps and random ones); the detections against
+   phase 18's bf16 keypoints.csv (found state equal on at least 445 of 448,
+   median distance at most 0.05 px); poses published on phase 18's PnP
+   successes +-1; the ADD AUC of the published camera_from_robot poses
+   (the client posts camera-frame keypoints, so the true pose is the
+   identity) within 0.01 of phase 18's; then a multi-frame server over 16
+   frames capturing every fourth: the buffer holds the captured solved
+   frames' detections, a pose is published, /clear_buffer empties it;
+22. serving with online int8: the r4 checkpoint with
+   int8_calibration_frames=32 over the 64 frames in order: /status reads
+   calibrating after frames 1-31 and active from frame 32's answer on, the
+   conv kernel 19 x 32 = 608 times; the amax the server calibrated beside
+   phase 18's PTQ calibration recomputed (the same 32 frames in batches of
+   16) within 1e-2 relative; frames 33-64's found state equal to that run's
+   keypoints.csv on at least 98% of the keypoints; the conv kernel bit for
+   bit against its plain version at B=1, the request's batch: each link of
+   the served chain at its own input on frame 33 (and the chain's maps
+   against the exact plain route's), and random operands at each link's
+   shape;
+23. export through the export CLI (batch 1, 640x480, on the card,
+   --self-test): vgg-Q r5 in bf16, and r4 PTQ calibrated on the holdout's
+   first 32 frames; each .pt2 loaded and run in a subprocess that imports
+   torch alone (the package never enters sys.modules; its keypoints equal
+   the in-process call's); the int8 artifact over the 64 frames at batch 1
+   against the PTQ CLI's keypoints.csv (445 of 448, median 0.05 px); the
+   float artifact served by serve_dream --artifact (3 warm-up requests) to
+   the client over the 64 frames: the detections against phase 21's (445
+   of 448, median 0.05 px); no kernel launch in any artifact call;
+24. timings: POST /image latency p50, p90 and max of the live bf16 and
+   artifact servers (the client runs of phases 21 and 23) and of live int8
+   (phase 22's requests once int8 was active), the first request's, the
+   stages of a request (PNG decode, preprocessing, model, peak decode, PnP,
+   and the HTTP remainder against the live bf16 p50), the unthrottled
+   client's frames/s, the export times, the .pt2 sizes, and each
+   artifact's ms a frame at batch 1.
+
 Then a line listing the kernels with their measurements (each row's ms and
 library_ms time the same work; the score and warp rows' ms is device time
 from a CUDA graph, and the warp's library_ms too; the score row adds its
 device time at phase 15's shapes; redesigned_in names the design the kernel
-now has; launches are counted on the CLI runs of phases 18-19), and as the
-last line
+now has; launches are counted on the CLI runs of phases 18-19 and the
+counted serving runs of phases 21-22), and as the last line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
 before that line.  Without CUDA the script exits non-zero at once.
 """
@@ -155,7 +198,9 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -207,8 +252,13 @@ WARP_ATOL = 2e-3
 STEP_LOSS_RTOL = 1e-5
 
 
+STARTED = time.perf_counter()
+
+
 def progress(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """A phase's JSON line, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, "elapsed_s": round(time.perf_counter() - STARTED, 1), **fields}),
+          flush=True)
 
 
 def cuda_ms(fn, iters, warmup=3):
@@ -595,23 +645,31 @@ def csv_layout(path):
     return rows[0], [r[0] for r in rows[1:]]
 
 
-def keypoint_agreement(ours_csv, ref_csv):
-    """How two keypoints.csv files agree: the share of keypoints with the
-    same found state, and the median and largest px distance where both
-    found it."""
-    def detections(path):
-        with open(path, newline="") as f:
-            rows = list(csv.reader(f))
-        n_kp = (len(rows[0]) - 1) // 4
-        return np.array([r[1:1 + 2 * n_kp] for r in rows[1:]], float).reshape(len(rows) - 1, n_kp, 2)
+def csv_detections(path):
+    """keypoints.csv's detected raw-frame keypoints ``[frames, n_kp, 2]``, in
+    row order."""
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    n_kp = (len(rows[0]) - 1) // 4
+    return np.array([r[1:1 + 2 * n_kp] for r in rows[1:]], float).reshape(len(rows) - 1, n_kp, 2)
 
-    a, b = detections(ours_csv), detections(ref_csv)
+
+def detection_agreement(a, b):
+    """How two sets of raw-frame detections agree: the keypoints (and their
+    share) with the same found state, and the median and largest px
+    distance where both found it."""
     found_a, found_b = a[..., 0] > -999.0, b[..., 0] > -999.0
     both = found_a & found_b
     dist = np.linalg.norm(a - b, axis=-1)[both]
-    return {"same_found_state_share": float(np.mean(found_a == found_b)),
+    return {"same_found_state": int(np.sum(found_a == found_b)), "keypoints": int(found_a.size),
+            "same_found_state_share": float(np.mean(found_a == found_b)),
             "both_found": int(both.sum()), "median_px": float(np.median(dist)),
             "max_px": float(dist.max())}
+
+
+def keypoint_agreement(ours_csv, ref_csv):
+    """:func:`detection_agreement` of two keypoints.csv files."""
+    return detection_agreement(csv_detections(ours_csv), csv_detections(ref_csv))
 
 
 def alternate_add_auc(text):
@@ -624,7 +682,9 @@ def workflow_phases(kernels_of_port, reset_counts, smi, holdout):
     temporary directory: datasets written and read through the port's CLI
     and PNG codec, the evaluation CLI on four checkpoints and in every PnP
     mode, the training CLI with resume, an encoder graft and QAT, and their
-    timings.  Returns the CLI runs' kernel launches and the timings."""
+    timings.  Returns the CLI runs' kernel launches, the timings, and under
+    ``work`` the temporary directory with the holdout and the evaluation
+    runs the serving phases hold themselves against."""
     from dream_tpu_torch import analysis
     from dream_tpu_torch.checkpoint import load_flax_checkpoint, state_to_flax
     from dream_tpu_torch.cli import make_synthetic_dataset as dataset_cli
@@ -710,7 +770,7 @@ def workflow_phases(kernels_of_port, reset_counts, smi, holdout):
     progress("evaluation_cli_layout", report="the committed report's lines, paths and numbers masked",
              csv="the committed headers and row names", keypoints_vs_committed=agreement)
     evaluate_cli("vgg-F r5 bf16", ["-i", VGGF_CHECKPOINT], VGGF_REFERENCE, outframe_tol=2, min_pnp=57)
-    _, _, _, ptq_counts = evaluate_cli(
+    ptq_dir, _, _, ptq_counts = evaluate_cli(
         "vgg-Q r4 PTQ", ["-i", R4_CHECKPOINT, "--int8-calibration-frames", str(CALIBRATION_FRAMES)],
         INT8_REFERENCES["ptq_r4"])
     if ptq_counts["conv_int8_kernel"] != 19 * (HOLDOUT_FRAMES // 16):
@@ -888,7 +948,445 @@ def workflow_phases(kernels_of_port, reset_counts, smi, holdout):
         "dtype": dtype_name(network.compute_dtype),
     })
     progress("workflow_timings", **out["timings"])
-    tmp_dir.cleanup()
+    # What the serving phases read; the caller removes the directory.
+    out["work"] = {"tmp_dir": tmp_dir, "hold": hold, "disk": disk, "vggq_dir": vggq_dir,
+                   "vggq_pnp": plain["pnp"], "ptq_dir": ptq_dir}
+    return out
+
+
+def http_post(url, path, data):
+    with urllib.request.urlopen(urllib.request.Request(url + path, data=data), timeout=300) as resp:
+        return json.loads(resp.read())
+
+
+def http_get(url, path):
+    with urllib.request.urlopen(url + path, timeout=300) as resp:
+        return json.loads(resp.read())
+
+
+def start_http(server):
+    """``make_http_server`` on a free loopback port, served by a thread."""
+    from dream_tpu_torch.serve import make_http_server
+
+    httpd = make_http_server(server, "127.0.0.1", 0)
+    return serve_in_thread(httpd)
+
+
+def serve_in_thread(httpd):
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return httpd, f"http://127.0.0.1:{httpd.server_address[1]}"
+
+
+def stop_http(httpd):
+    httpd.shutdown()
+    httpd.server_close()
+
+
+def record_frames(server):
+    """Wrap ``server.process_image`` to keep each frame's status, raw-frame
+    detections and, when the frame published one, its pose (the client is
+    sequential, so the latest ones are the frame's)."""
+    records = []
+    process = server.process_image
+
+    def process_and_record(image):
+        status = process(image)
+        with server._lock:
+            detected = server.latest_detection["detected_keypoints"]
+            pose = server.latest_pose if status["pnp"] else None
+        records.append({"status": status, "detected": detected, "pose": pose})
+        return status
+
+    server.process_image = process_and_record
+    return records
+
+
+CLIENT_SUMMARY = re.compile(r"(\d+) frames in ([0-9.]+) s: ([0-9.]+) frames/s; POST /image ms "
+                            r"p50 ([0-9.]+) p90 ([0-9.]+) max ([0-9.]+)")
+
+
+def run_client(url, dataset):
+    """The port's client CLI, unthrottled (--rate 1000), as a subprocess over
+    every frame of ``dataset``; returns its frame lines and its summary."""
+    out = subprocess.run(
+        [sys.executable, "-m", "dream_tpu_torch.cli.dream_client_example", "--server", url,
+         "--dataset", dataset, "--rate", "1000"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        sys.stdout.write(out.stdout[-3000:] + out.stderr[-3000:])
+        raise AssertionError(f"the client exited with {out.returncode}")
+    lines = [line for line in out.stdout.splitlines() if re.match(r"^\d+: (detected|no pose)", line)]
+    m = CLIENT_SUMMARY.search(out.stdout)
+    if m is None:
+        raise AssertionError("the client printed no summary line:\n" + out.stdout[-2000:])
+    summary = dict(zip(("frames", "seconds", "frames_per_s", "image_ms_p50", "image_ms_p90",
+                        "image_ms_max"), (float(v) for v in m.groups())))
+    return lines, summary
+
+
+def published_add_auc(records, positions, gt_projections, raw_res):
+    """ADD AUC of the poses a server published, frame by frame: the client
+    posts camera-frame keypoints, so each frame's true camera_from_robot
+    pose is the identity; ADD averages over the keypoints PnP was fed (the
+    found ones), and a frame without a pose counts as a failure, as in
+    ``analysis._pnp_and_add``."""
+    from dream_tpu_torch import analysis
+    from dream_tpu_torch.ops import geometric_vision as gv
+
+    adds = np.full(len(records), -999.99)
+    for i, record in enumerate(records):
+        if record["pose"] is None:
+            continue
+        pose = record["pose"]["camera_from_robot"]
+        found = torch.from_numpy((record["detected"][:, 0] > -999.0).astype(np.float32))[None]
+        adds[i] = float(gv.add_from_pose(torch.tensor([pose["translation"]], dtype=torch.float32),
+                                         torch.tensor([pose["quaternion_xyzw"]], dtype=torch.float32),
+                                         torch.from_numpy(positions[i : i + 1]), found)[0])
+    n_inframe = analysis._inframe_counts(gt_projections.astype(float), raw_res)
+    return analysis.pnp_metrics(adds, n_inframe)
+
+
+def latency_summary(ms):
+    return {"p50": float(np.percentile(ms, 50)), "p90": float(np.percentile(ms, 90)),
+            "max": float(np.max(ms)), "n": len(ms)}
+
+
+def compare_chain_links(chain, net_in, dtype):
+    """The int8 chain on ``net_in`` with every link's conv held bit for bit
+    against its plain version at the link's own input (compare_conv_int8
+    raises on a difference); then the whole chain's maps on the kernels
+    against the exact plain route's.  Returns the largest difference (0)."""
+    from dream_tpu_torch.models import vgg_int8_deploy
+
+    kernel_conv = vgg_int8_deploy.conv3x3_int8_ohwi
+    vgg_int8_deploy.conv3x3_int8_ohwi = lambda x_q, w_q, k, b, relu: compare_conv_int8(
+        x_q, w_q, k, b, relu)[0]
+    try:
+        checked = vgg_int8_deploy.run_int8_chain(chain, net_in, dtype, backend="auto")
+    finally:
+        vgg_int8_deploy.conv3x3_int8_ohwi = kernel_conv
+    plain = vgg_int8_deploy.run_int8_chain(chain, net_in, dtype, backend="plain")
+    diff = float((checked - plain).abs().max())
+    if diff != 0.0:
+        raise AssertionError(f"the int8 chain's maps on the kernel differ from the plain route's by {diff}")
+    return diff
+
+
+def serving_phases(kernels_of_port, reset_counts, smi, work):
+    """Phases 21-24: the pose server at full width on the phase-17 holdout,
+    live in bf16 and with online int8, the torch.export artifacts and the
+    server on them, and their timings.  Returns the serving runs' kernel
+    launches."""
+    from dream_tpu_torch.cli import export_inference as export_cli
+    from dream_tpu_torch.cli import serve_dream as serve_cli
+    from dream_tpu_torch.data.dataset import collect_calibration_batches, make_batch_processor
+    from dream_tpu_torch.export import load_inference
+    from dream_tpu_torch.models.quant import calibrate
+    from dream_tpu_torch.models.vgg_int8_deploy import chain_shapes
+    from dream_tpu_torch.network import create_network_from_config_file
+    from dream_tpu_torch.ops import geometric_vision as gv
+    from dream_tpu_torch.serve import DreamInferenceServer
+    from dream_tpu_torch.utils.ndds import find_ndds_data_in_dir, load_camera_intrinsics
+    from dream_tpu_torch.utils.png import decode_png
+
+    def launches():
+        return {k: v.launches for k, v in kernels_of_port.items()}
+
+    hold, disk, tmp = work["hold"], work["disk"], work["tmp_dir"].name
+    raw_res = (640, 480)
+    found_data, found_configs = find_ndds_data_in_dir(hold)
+    K = load_camera_intrinsics(found_configs["camera"])
+    camera_info = json.dumps({"fx": K[0, 0], "fy": K[1, 1], "cx": K[0, 2], "cy": K[1, 2]}).encode()
+    pngs = []
+    for datum in found_data:
+        with open(datum["image_paths"]["rgb"], "rb") as f:
+            pngs.append(f.read())
+    positions = disk.kp_positions  # float32 [64, 7, 3], camera frame
+
+    def request(url, i):
+        """One frame as the client sends it: keypoints, then the image; returns
+        the /image JSON and its ms."""
+        http_post(url, "/keypoint_positions", json.dumps(positions[i].tolist()).encode())
+        t0 = time.perf_counter()
+        result = http_post(url, "/image", pngs[i])
+        return result, (time.perf_counter() - t0) * 1e3
+
+    out = {"launches": {}, "timings": {"card": smi}}
+
+    # 21. Serving, live: vgg-Q r5 in its sidecar's bf16, single-frame mode.
+    net = create_network_from_config_file(CONFIG, CHECKPOINT, device="cuda")
+    if net.compute_dtype != torch.bfloat16:
+        raise AssertionError("the r5 sidecar's bfloat16 did not reach the served network")
+    server = DreamInferenceServer(net, base_frame="panda_link0")
+    httpd, url = start_http(server)
+    http_post(url, "/camera_info", camera_info)
+    # The first request on a frame the evaluation CLI found 4 keypoints or
+    # more in, so that it solves PnP too.
+    cli_detected = csv_detections(os.path.join(work["vggq_dir"], "keypoints.csv"))
+    first = int(np.argmax((cli_detected[..., 0] > -999.0).sum(-1) >= 4))
+    first_result, first_ms = request(url, first)
+    for i in range(2):  # with the first, 3 warm-up requests before the timed ones
+        request(url, i)
+    records = record_frames(server)
+    reset_counts()
+    lines, client = run_client(url, hold)
+    counts = launches()
+    failures = []
+    if len(records) != HOLDOUT_FRAMES or len(lines) != HOLDOUT_FRAMES:
+        failures.append(f"{len(records)} frames served and {len(lines)} client lines, not {HOLDOUT_FRAMES}")
+    if counts["score_kernel"] != HOLDOUT_FRAMES or counts["conv_int8_kernel"] != 0:
+        failures.append(f"launches {counts}: not the score kernel once a request")
+    detected = np.stack([r["detected"] for r in records])
+    vs_cli = detection_agreement(detected, cli_detected)
+    if vs_cli["same_found_state"] < 445 or vs_cli["median_px"] > 0.05:
+        failures.append(f"detections against the evaluation CLI's: {vs_cli}")
+    published = sum(bool(r["status"]["pnp"]) for r in records)
+    if abs(published - work["vggq_pnp"]["num_pnp_found"]) > 1:
+        failures.append(f"{published} poses published, the evaluation CLI solved "
+                        f"{work['vggq_pnp']['num_pnp_found']}")
+    pnp = published_add_auc(records, positions, disk.kp_projs_raw, raw_res)
+    if abs(pnp["add_auc"] - work["vggq_pnp"]["add_auc"]) > 0.01:
+        failures.append(f"ADD AUC {pnp['add_auc']} of the published poses not within 0.01 of "
+                        f"{work['vggq_pnp']['add_auc']}")
+    # The score kernel against its plain version at a request's shapes: a
+    # served frame's [7, 100, 100] maps, and random ones (compare_kernel
+    # raises on any difference in peaks or masks).
+    with torch.no_grad():
+        served_maps = net._belief_maps(net.preprocess(torch.from_numpy(decode_png(pngs[first]))[None]))[0]
+    request_shapes = {"served frame 7x100x100": compare_kernel(served_maps.contiguous()),
+                      "random 7x100x100": compare_kernel(random_maps(np.random.RandomState(21), 7, 100, 100))}
+    out["max_abs_err"] = {"score_kernel": max(err for err, _ in request_shapes.values())}
+    progress("serving_live", checkpoint="vgg-Q r5", compute_dtype="bfloat16", requests=len(records),
+             score_kernel_vs_plain_at_request_shapes={k: {"max_abs_err": e, "peaks": p}
+                                                      for k, (e, p) in request_shapes.items()},
+             launches=counts, detections_vs_evaluation_cli=vs_cli, poses_published=published,
+             evaluation_cli_pnp=[work["vggq_pnp"]["num_pnp_found"], work["vggq_pnp"]["num_pnp_possible"]],
+             add_auc=pnp["add_auc"], evaluation_cli_add_auc=work["vggq_pnp"]["add_auc"],
+             add_mean=pnp["add_mean"], client=client,
+             first_request={"frame": first, "ms": first_ms, "pnp": first_result["pnp"]})
+    if failures:
+        raise AssertionError("serving, live: " + "; ".join(failures))
+    out["launches"]["score_kernel"] = counts["score_kernel"]
+
+    # Multi-frame: every fourth of 16 frames captured into the buffer.
+    multi = DreamInferenceServer(net, base_frame="panda_link0", single_frame_mode=False)
+    multi_httpd, multi_url = start_http(multi)
+    http_post(multi_url, "/camera_info", camera_info)
+    expected, captured = 0, []
+    for i in range(16):
+        if i % 4 == 0:
+            http_post(multi_url, "/capture_frame", b"")
+        result, _ = request(multi_url, i)
+        if i % 4 == 0:
+            captured.append([result["n_detected"], result["pnp"]])
+            expected += result["n_detected"] if result["pnp"] else 0
+        elif result["pnp"]:
+            raise AssertionError(f"frame {i} was not captured but solved in multi-frame mode")
+    status, pose = http_get(multi_url, "/status"), http_get(multi_url, "/pose")
+    cleared = (http_post(multi_url, "/clear_buffer", b""), http_get(multi_url, "/status"))
+    stop_http(multi_httpd)
+    progress("serving_multi_frame", captured_n_detected_and_pnp=captured, buffer_size=status["buffer_size"],
+             expected_buffer_size=expected, pose_published=pose["ok"],
+             n_correspondences=pose.get("n_correspondences"), buffer_after_clear=cleared[1]["buffer_size"])
+    if (status["buffer_size"] != expected or expected == 0 or not pose["ok"]
+            or pose["n_correspondences"] != expected or cleared[1]["buffer_size"] != 0):
+        raise AssertionError("multi-frame buffer: " + json.dumps([status, pose, cleared[1]]))
+
+    # 22. Serving with online int8: r4, calibrated on its first 32 frames.
+    r4 = create_network_from_config_file(R4_CONFIG, R4_CHECKPOINT, device="cuda")
+    server8 = DreamInferenceServer(r4, base_frame="panda_link0", int8_calibration_frames=CALIBRATION_FRAMES)
+    served_qvars = {}
+    enable = r4.enable_int8_inference
+
+    def enable_and_keep(batches):
+        served_qvars.update(enable(batches))
+        return served_qvars
+
+    r4.enable_int8_inference = enable_and_keep
+    records8 = record_frames(server8)
+    httpd8, url8 = start_http(server8)
+    http_post(url8, "/camera_info", camera_info)
+    before = http_get(url8, "/status")["int8"]
+    reset_counts()
+    int8_status, int8_ms = [], []
+    for i in range(HOLDOUT_FRAMES):
+        int8_ms.append(request(url8, i)[1])
+        int8_status.append(http_get(url8, "/status")["int8"])
+    counts8 = launches()
+    # Phase 18's PTQ run calibrated on the same 32 frames in batches of 16.
+    process = make_batch_processor(raw_res, r4.trained_net_input_resolution(),
+                                   r4.trained_net_output_resolution(), r4.image_preprocessing(),
+                                   r4.image_normalization, include_belief_maps=False)
+    batches = collect_calibration_batches(
+        disk.load_images(range(CALIBRATION_FRAMES)),
+        lambda g, images, kp: process(g, images.cuda(), kp.cuda()), CALIBRATION_FRAMES, 16)
+    cli_qvars = calibrate(copy.deepcopy(r4.model), [b.permute(0, 3, 1, 2) for b in batches])
+    amax = {k: [float(served_qvars[k]), float(cli_qvars[k])] for k in sorted(cli_qvars)}
+    amax_rel = max(abs(a / b - 1.0) for a, b in amax.values())
+    ptq_detected = csv_detections(os.path.join(work["ptq_dir"], "keypoints.csv"))
+    vs_ptq = detection_agreement(np.stack([r["detected"] for r in records8])[CALIBRATION_FRAMES:],
+                                 ptq_detected[CALIBRATION_FRAMES:])
+    # The conv kernel against its plain version at a request's shapes
+    # (B=1): every link of the served chain on frame 33, at the link's own
+    # input, and random operands over the whole int8 range; both raise on
+    # any difference.
+    x33 = r4.preprocess(torch.from_numpy(decode_png(pngs[CALIBRATION_FRAMES]))[None])
+    chain_diff = compare_chain_links(r4.int8_chain, x33.float(), r4.compute_dtype)
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    for b, h, w, ci, co, relu in chain_shapes(1):
+        compare_conv_int8(*int8_case(gen, b, h, w, ci, co), relu)
+    out["max_abs_err"]["conv_int8_kernel"] = chain_diff
+    progress("serving_online_int8", checkpoint="vgg-Q r4", status_before=before,
+             status_after_each_frame=int8_status, launches=counts8,
+             request_ms_frames_33_64=latency_summary(int8_ms[CALIBRATION_FRAMES:]),
+             amax_served_vs_evaluation_cli=amax, amax_max_rel_diff=amax_rel,
+             conv_kernel_vs_plain_b1={"chain_links_frame_33": chain_diff, "random_links": 0},
+             detections_frames_33_64_vs_ptq_cli=vs_ptq)
+    failures = []
+    want_status = ["calibrating"] * (CALIBRATION_FRAMES - 1) + ["active"] * (HOLDOUT_FRAMES - CALIBRATION_FRAMES + 1)
+    if before != "calibrating" or int8_status != want_status:
+        failures.append("the int8 status did not read calibrating through frame 31 and active from frame 32 on")
+    if counts8["conv_int8_kernel"] != 19 * CALIBRATION_FRAMES or counts8["score_kernel"] != HOLDOUT_FRAMES:
+        failures.append(f"launches {counts8}: not 19 conv launches on each of the {CALIBRATION_FRAMES} int8 frames")
+    if set(amax) != set(served_qvars) or not amax_rel <= 1e-2:
+        failures.append(f"amax differs from the evaluation CLI's calibration by {amax_rel} relative")
+    if vs_ptq["same_found_state_share"] < 0.98:
+        failures.append(f"frames 33-64 against the PTQ CLI run: {vs_ptq}")
+    if failures:
+        raise AssertionError("serving with online int8: " + "; ".join(failures))
+    out["launches"]["score_kernel"] += counts8["score_kernel"]
+    out["launches"]["conv_int8_kernel"] = counts8["conv_int8_kernel"]
+
+    # 23. Export: vgg-Q r5 in bf16 and r4 PTQ, batch 1, 640x480, on the card.
+    artifacts, export_s, export_text = {}, {}, {}
+    for name, argv in (("vgg-Q r5", ["-i", CHECKPOINT]),
+                       ("vgg-Q r4 PTQ", ["-i", R4_CHECKPOINT, "--int8-calibration-dir", hold,
+                                         "--int8-calibration-frames", str(CALIBRATION_FRAMES)])):
+        path = os.path.join(tmp, re.sub(r"\W+", "_", name) + ".pt2")
+        args = export_cli.make_parser().parse_args(
+            argv + ["-o", path, "-b", "1", "--raw-resolution", "640x480", "--device", "cuda", "--self-test"])
+        t0 = time.perf_counter()
+        (_, data), text = quiet(export_cli.export_inference_cli, args)
+        export_s[name] = time.perf_counter() - t0
+        if "self-test OK" not in text:
+            raise AssertionError(f"{name}: the export CLI's self-test did not pass:\n{text[-2000:]}")
+        m = re.search(r"exported in ([0-9.]+) s", text)
+        export_text[name] = {"export_s": float(m.group(1)), "self_test": re.search(
+            r"self-test on .*", text).group(0)}
+        artifacts[name] = (path, data)
+    frame_path = os.path.join(tmp, "frame0.npy")
+    np.save(frame_path, disk.load_images([0]))
+    torch_only = {}
+    for name, (path, data) in artifacts.items():
+        script = (
+            "import json, sys\n"
+            "import numpy as np\n"
+            "import torch\n"
+            f"program = torch.export.load({path!r})\n"
+            "with torch.no_grad():\n"
+            f"    _, kps = program.module()(torch.from_numpy(np.load({frame_path!r})).cuda())\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('dream_tpu_torch', 'dream_tpu', 'jax'))\n"
+            "print(json.dumps({'modules': bad, 'keypoints': kps.cpu().tolist()}))\n")
+        ran = subprocess.run([sys.executable, "-c", script], cwd=tmp, capture_output=True, text=True,
+                             timeout=300, env={**os.environ, "PYTHONPATH": ""})
+        if ran.returncode != 0:
+            raise AssertionError(f"{name}: the torch-only load failed:\n{ran.stderr[-3000:]}")
+        loaded = json.loads(ran.stdout.strip().splitlines()[-1])
+        with torch.no_grad():
+            here = load_inference(data)(torch.from_numpy(np.load(frame_path)).cuda())[1].cpu().numpy()
+        torch_only[name] = {"modules_of_the_package": loaded["modules"],
+                            "keypoints_equal_in_process": bool(np.array_equal(np.asarray(loaded["keypoints"]), here))}
+        if loaded["modules"] or not torch_only[name]["keypoints_equal_in_process"]:
+            raise AssertionError(f"{name}: torch-only load {torch_only[name]}")
+    serve_args = serve_cli.make_parser().parse_args(
+        ["--artifact", artifacts["vgg-Q r5"][0], "-b", "panda_link0", "-p", "0", "--device", "cuda"])
+    server_a, httpd_a = serve_cli.build_server(serve_args)
+    httpd_a, url_a = serve_in_thread(httpd_a)
+    http_post(url_a, "/camera_info", camera_info)
+    for i in range(3):  # warm-up requests
+        request(url_a, i)
+    records_a = record_frames(server_a)
+    call8 = load_inference(artifacts["vgg-Q r4 PTQ"][1])
+    reset_counts()
+    # The int8 artifact over the 64 frames at batch 1, against the PTQ
+    # CLI's int8 detections (phase 18, the same 32 calibration frames in
+    # batches of 16).
+    with torch.no_grad():
+        detected8 = np.stack([call8(torch.from_numpy(decode_png(png))[None].cuda())[1][0].cpu().numpy()
+                              for png in pngs])
+    lines_a, client_a = run_client(url_a, hold)
+    counts_a = launches()
+    vs_live = detection_agreement(np.stack([r["detected"] for r in records_a]), detected)
+    int8_vs_ptq = detection_agreement(detected8, ptq_detected)
+    sizes = {name: os.path.getsize(path) for name, (path, _) in artifacts.items()}
+    progress("export", artifacts={n: os.path.basename(p) for n, (p, _) in artifacts.items()},
+             cli=export_text, torch_only_subprocess=torch_only, bytes=sizes,
+             served_artifact_requests=len(records_a), launches_during_artifact_calls=counts_a,
+             detections_vs_live_bf16=vs_live, int8_artifact_vs_ptq_cli=int8_vs_ptq, client=client_a)
+    if len(records_a) != HOLDOUT_FRAMES or len(lines_a) != HOLDOUT_FRAMES:
+        raise AssertionError(f"the artifact server answered {len(records_a)} frames")
+    if any(counts_a.values()):
+        raise AssertionError(f"kernels launched during artifact calls: {counts_a}")
+    if vs_live["same_found_state"] < 445 or vs_live["median_px"] > 0.05:
+        raise AssertionError(f"artifact detections against the live server's: {vs_live}")
+    if int8_vs_ptq["same_found_state"] < 445 or int8_vs_ptq["median_px"] > 0.05:
+        raise AssertionError(f"int8 artifact detections against the PTQ CLI's: {int8_vs_ptq}")
+
+    # 24. Timings: request latencies from the client runs (after 3 warm-up
+    # requests) and from phase 22's int8 requests once int8 was active;
+    # a request's stages in-process, the remainder being HTTP and the
+    # server's own work.
+    client_ms = ("image_ms_p50", "image_ms_p90", "image_ms_max")
+    request_ms = {"live bf16": dict(zip(("p50", "p90", "max"), (client[k] for k in client_ms)), n=64),
+                  "live int8": latency_summary(int8_ms[CALIBRATION_FRAMES:]),
+                  "artifact": dict(zip(("p50", "p90", "max"), (client_a[k] for k in client_ms)), n=64)}
+    stages = {k: [] for k in ("png_decode", "preprocess", "model", "peak_decode", "pnp")}
+    K_t = torch.as_tensor(K[None], dtype=torch.float32, device="cuda")
+
+    def lap(stage, t0):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        stages[stage].append((now - t0) * 1e3)
+        return now
+
+    with torch.no_grad():
+        for i in range(11):
+            t0 = time.perf_counter()
+            image = decode_png(pngs[i])
+            t0 = lap("png_decode", t0)
+            x = net.preprocess(torch.from_numpy(image)[None])
+            t0 = lap("preprocess", t0)
+            belief = net._belief_maps(x)
+            t0 = lap("model", t0)
+            kp_netout, _ = net._keypoints(belief)
+            kp = kp_netout.cpu()
+            t0 = lap("peak_decode", t0)
+            found = (kp[0, :, 0] > -999.0).numpy()
+            det = records[i]["detected"][found]
+            gv.solve_pnp(torch.as_tensor(positions[i][found][None], device="cuda"),
+                         torch.as_tensor(det[None], dtype=torch.float32, device="cuda"), K_t)
+            lap("pnp", t0)
+    stage_ms = {k: float(np.median(v[3:])) for k, v in stages.items()}
+    stage_ms["http_and_rest"] = request_ms["live bf16"]["p50"] - sum(stage_ms.values())
+    x1 = torch.from_numpy(disk.load_images([0])).cuda()
+    artifact_ms = {}
+    with torch.no_grad():
+        for name, (_, data) in artifacts.items():
+            call = load_inference(data)
+            artifact_ms[name] = cuda_ms(lambda: call(x1), 5, warmup=2)
+        live_model_ms = cuda_ms(lambda: net._belief_maps(net.preprocess(x1)), 5, warmup=2)
+    out["timings"].update({
+        "request_ms": request_ms, "first_request_ms": first_ms, "first_request_pnp": first_result["pnp"],
+        "stages_ms_median_of_8": stage_ms,
+        "client_frames_per_s": {"live bf16": client["frames_per_s"], "artifact": client_a["frames_per_s"]},
+        "export_s": export_text, "export_cli_s_with_self_test": export_s, "artifact_bytes": sizes,
+        "artifact_ms_a_frame_b1": artifact_ms, "live_preprocess_and_model_ms_b1": live_model_ms,
+    })
+    progress("serving_timings", **out["timings"])
+    for h in (httpd, httpd8, httpd_a):
+        stop_http(h)
+    del net, r4, server, server8, server_a
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1458,12 +1956,19 @@ def main():
              eval_cli_frames_per_s=workflow["timings"]["eval_cli_frames_per_s"],
              eval_in_memory_frames_per_s=workflow["timings"]["eval_in_memory_frames_per_s"])
 
+    # 21-24. The pose server and the torch.export artifacts.
+    serving = serving_phases(kernels_of_port, reset_counts, smi, workflow["work"])
+    workflow["work"]["tmp_dir"].cleanup()
+    launched = {k: workflow["launches"][k] + serving["launches"].get(k, 0) for k in workflow["launches"]}
+    score_err = max(score_err, serving["max_abs_err"]["score_kernel"])
+    conv_cases["serving chain links at B=1"] = serving["max_abs_err"]["conv_int8_kernel"]
+
     kernels = [{
         "name": "score_kernel",
         "route": "cuda",
         "source": "dream_tpu_torch/csrc/score_kernel.cu",
         "replaces": "dream_tpu/ops/pallas_kernels.py:40",
-        "launches": workflow["launches"]["score_kernel"],
+        "launches": launched["score_kernel"],
         "max_abs_err": score_err,
         "ms": min(score_device_ms),
         "plain_ms": min(score_plain_ms),
@@ -1477,7 +1982,7 @@ def main():
         "route": "cuda",
         "source": "dream_tpu_torch/csrc/warp_kernel.cu",
         "replaces": "dream_tpu/ops/pallas_warp.py:74",
-        "launches": workflow["launches"]["warp_kernel"],
+        "launches": launched["warp_kernel"],
         "max_abs_err": warp_err,
         "ms": min(warp_device_ms),
         "plain_ms": min(warp_plain_ms),
@@ -1490,7 +1995,7 @@ def main():
         "route": "cuda",
         "source": "dream_tpu_torch/csrc/conv_int8_kernel.cu",
         "replaces": "dream_tpu/ops/pallas_conv.py:98",
-        "launches": workflow["launches"]["conv_int8_kernel"],
+        "launches": launched["conv_int8_kernel"],
         "max_abs_err": max(conv_cases.values()),
         "ms": chain_ms,
         "plain_ms": chain_plain_ms,

@@ -36,7 +36,9 @@ import torch
 import torch.nn.functional as F
 
 from dream_tpu_torch.models.quant import activation_scale, quantize_activations, quantize_weights
-from dream_tpu_torch.ops.conv_int8 import conv3x3_int8_ohwi, conv3x3_int32_plain
+from dream_tpu_torch.ops.conv_int8 import conv3x3_int8_ohwi, conv3x3_int8_plain, conv3x3_int32_plain
+
+CHAIN_BACKENDS = ("auto", "plain")
 
 # (block, conv, relu after) in forward order; the consumer of each link is
 # the next, and of the last, head.conv1.
@@ -192,9 +194,18 @@ def _conv_nhwc(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def run_int8_chain(chain: Int8Chain, net_in: torch.Tensor,
-                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                   dtype: torch.dtype = torch.float32, backend: str = "auto") -> torch.Tensor:
     """Normalized NHWC f32 ``[B, H, W, 3]`` (H, W multiples of 16) -> f32
-    belief maps NHWC ``[B, H/4, W/4, n_keypoints]``."""
+    belief maps NHWC ``[B, H/4, W/4, n_keypoints]``.
+
+    ``backend`` picks the chain's convs as ``dream_tpu``'s ``backend``
+    argument does (``vgg_int8_deploy.py:145-168``): ``"auto"`` runs the CUDA
+    int8 conv kernel for CUDA tensors and the plain version for CPU
+    tensors; ``"plain"`` runs the exact plain int32 route on any device,
+    which ``torch.export`` can trace (``dream_tpu_torch/export.py``)."""
+    if backend not in CHAIN_BACKENDS:
+        raise ValueError(f"backend must be one of {CHAIN_BACKENDS}, got {backend!r}")
+    conv = conv3x3_int8_ohwi if backend == "auto" else conv3x3_int8_plain
     _, h, w, _ = net_in.shape
     if h % 16 or w % 16:
         raise ValueError(f"the int8 chain takes H and W multiples of 16, got {h}x{w}")
@@ -209,7 +220,7 @@ def run_int8_chain(chain: Int8Chain, net_in: torch.Tensor,
             x_q = _pool2(x_q).contiguous()
         elif link.pre == "up":
             x_q = _up2(x_q)
-        x_q = conv3x3_int8_ohwi(x_q, link.w_q, link.k, link.b, relu=link.relu)
+        x_q = conv(x_q, link.w_q, link.k, link.b, relu=link.relu)
 
     acc = conv3x3_int32_plain(x_q, chain.head1_w_q)
     x = torch.relu(acc.to(torch.float32) * chain.head1_scale + chain.head1_b).to(dtype)

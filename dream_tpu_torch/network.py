@@ -172,6 +172,9 @@ class DreamNetwork:
         self.network_config = network_config
         self.manipulator_name = manip["name"]
         self.keypoint_names: List[str] = [kp["name"] for kp in manip["keypoints"]]
+        self.friendly_keypoint_names: List[str] = [
+            kp.get("friendly_name", kp["name"]) for kp in manip["keypoints"]
+        ]
         self.n_keypoints = len(self.keypoint_names)
         self.architecture_type = arch["type"]
         if self.architecture_type not in KNOWN_ARCHITECTURES:
@@ -531,6 +534,10 @@ class DreamNetwork:
         convs run in the CUDA int8 conv kernel on the card.  The chain is a
         snapshot: later training does not change it.  Training and
         checkpoints stay float.  Returns the amax by module path.
+
+        Calibration runs on a copy of the model, so the live model never
+        enters ``calibrate`` mode: inference on other threads (the server's
+        handlers) goes on in float meanwhile and adds nothing to the amax.
         """
         if not vgg_int8_deploy.supports(self.model):
             raise NotImplementedError(
@@ -539,16 +546,17 @@ class DreamNetwork:
             )
         batches = (torch.as_tensor(b).to(self.device, torch.float32).permute(0, 3, 1, 2)
                    for b in calibration_net_inputs)
-        qvars = quant_ops.calibrate(self.model, batches)
+        qvars = quant_ops.calibrate(copy.deepcopy(self.model), batches)
         self.int8_chain = vgg_int8_deploy.quantize_chain(self.model.state_dict(), qvars)
         return qvars
 
     # --- inference (reference dream/network.py:503-590) ---
 
     def _belief_maps(self, network_input: torch.Tensor) -> torch.Tensor:
-        if self.int8_chain is not None:
+        chain = self.int8_chain  # one read: another thread may set it meanwhile
+        if chain is not None:
             belief = vgg_int8_deploy.run_int8_chain(
-                self.int8_chain, network_input.to(self.device, torch.float32), self.compute_dtype
+                chain, network_input.to(self.device, torch.float32), self.compute_dtype
             ).permute(0, 3, 1, 2).contiguous()
         else:
             self.model.eval()
@@ -584,33 +592,61 @@ class DreamNetwork:
         keypoints, peaks = self._keypoints(belief)
         return belief, keypoints, peaks["scores"][..., 0], peaks["coords"][..., 0, :]
 
-    def preprocess(self, images_u8: torch.Tensor) -> torch.Tensor:
-        """uint8 ``[B, H, W, 3]`` frames -> normalized float net input on the device."""
+    def enable_evaluation(self) -> None:
+        """Inference mode (``dream_tpu/network.py:703``): BatchNorm on its
+        running statistics."""
+        self.model.eval()
+
+    def preprocess(self, images_u8: torch.Tensor,
+                   image_preprocessing_override: Optional[str] = None) -> torch.Tensor:
+        """uint8 ``[B, H, W, 3]`` frames -> normalized float net input on the
+        device, in the trained preprocessing mode or in the override."""
         return image_proc_ops.preprocess_and_normalize(
             images_u8.to(self.device),
             self.trained_net_input_resolution(),
-            self.image_preprocessing(),
+            image_preprocessing_override or self.image_preprocessing(),
             self.image_normalization,
         )
 
-    def keypoints_from_image(self, input_rgb_image: np.ndarray, debug: bool = False) -> Dict[str, Any]:
+    def keypoints_from_image(self, input_rgb_image: np.ndarray,
+                             image_preprocessing_override: Optional[str] = None,
+                             debug: bool = False, detailed: bool = False) -> Dict[str, Any]:
         """uint8 ``[H, W, 3]`` array -> raw-frame keypoints (reference
-        dream/network.py:423-499); ``debug`` adds the net input, the belief
-        maps and the net-output / net-input frame keypoints."""
+        dream/network.py:423-499, ``dream_tpu/network.py:1029-1098``).
+
+        ``image_preprocessing_override`` replaces the trained preprocessing
+        mode for this frame.  ``detailed`` adds, through
+        :meth:`inference_detailed`, each map's best peak score
+        (``peak_scores [n_kp]``) and that peak in the raw frame
+        (``best_peak_keypoints [n_kp, 2]``), kept where the score-gap
+        disambiguation rejects it: the inputs of soft-detection PnP.
+        ``debug`` adds the net input and the belief maps (tensors on the
+        device) and the net-output / net-input frame keypoints."""
         image = np.asarray(input_rgb_image, dtype=np.uint8)
         input_resolution = (image.shape[1], image.shape[0])
-        netin_res, _ = self.net_resolutions_from_image_raw_resolution(input_resolution)
-        net_input = self.preprocess(torch.from_numpy(image)[None])
-        belief_maps, kp_netout = self.inference(net_input)
-        detected_netout = kp_netout[0].cpu().numpy().astype(float)
+        preprocessing = image_preprocessing_override or self.image_preprocessing()
+        netin_res, _ = self.net_resolutions_from_image_raw_resolution(input_resolution, preprocessing)
+        net_input = self.preprocess(torch.from_numpy(image)[None], preprocessing)
+        if detailed:
+            belief_maps, kp_netout, peak_scores, best_netout = self.inference_detailed(net_input)
+        else:
+            belief_maps, kp_netout = self.inference(net_input)
         netout_res_inf = (belief_maps.shape[-1], belief_maps.shape[-2])
-        kp_netin = coord_ops.convert_keypoints_to_netin_from_netout(
-            detected_netout, netout_res_inf, netin_res
-        )
-        detected = coord_ops.convert_keypoints_to_raw_from_netin(
-            kp_netin, netin_res, input_resolution, self.image_preprocessing()
-        )
-        result = {"detected_keypoints": np.asarray(detected)}
+
+        def to_raw(kp_netout_frame):
+            kp_netin = coord_ops.convert_keypoints_to_netin_from_netout(
+                kp_netout_frame, netout_res_inf, netin_res
+            )
+            return kp_netin, np.asarray(coord_ops.convert_keypoints_to_raw_from_netin(
+                kp_netin, netin_res, input_resolution, preprocessing
+            ))
+
+        detected_netout = kp_netout[0].cpu().numpy().astype(float)
+        kp_netin, detected = to_raw(detected_netout)
+        result = {"detected_keypoints": detected}
+        if detailed:
+            result["peak_scores"] = peak_scores[0].cpu().numpy()
+            result["best_peak_keypoints"] = to_raw(best_netout[0].cpu().numpy().astype(float))[1]
         if debug:
             result["image_rgb_net_input"] = net_input[0]
             result["belief_maps"] = belief_maps[0]

@@ -26,11 +26,12 @@ from typing import Dict, Tuple
 
 import torch
 
-from dream_tpu_torch.ops.score_kernel import score_maps
+from dream_tpu_torch.ops.score_kernel import score_maps, score_maps_plain
 
 NO_DETECTION_SENTINEL = -999.999  # reference dream/network.py:572
 SCORE_GAP_THRESHOLD = 0.25  # reference dream/network.py:191
 DEFAULT_MAX_PEAKS = 8
+DECODE_BACKENDS = ("auto", "plain")
 
 
 def create_belief_maps(keypoints: torch.Tensor, image_resolution, sigma: float = 2.0):
@@ -90,20 +91,26 @@ def peaks_from_belief_maps(
     belief_maps: torch.Tensor,
     offset_due_to_upsampling: float,
     max_peaks: int = DEFAULT_MAX_PEAKS,
+    decode_backend: str = "auto",
 ) -> Dict[str, torch.Tensor]:
     """Batched fixed-shape peak extraction over ``[..., H, W]`` maps.
 
     Same contract as ``dream_tpu.ops.belief_maps.peaks_from_belief_maps``:
     ``coords [..., K, 2]``, ``scores [..., K]`` (-inf pad), ``valid [..., K]``
-    and ``count [...]`` (peak pixels, may exceed K).  The map-sized half runs
-    in the CUDA score kernel for CUDA tensors and in its plain torch version
-    for CPU tensors.
+    and ``count [...]`` (peak pixels, may exceed K).  The map-sized half runs,
+    with ``decode_backend="auto"``, in the CUDA score kernel for CUDA tensors
+    and in its plain torch version for CPU tensors; ``"plain"`` runs the
+    plain version on any device, which is what ``torch.export`` can trace
+    (``dream_tpu_torch/export.py``, as ``dream_tpu/export.py`` asks for
+    ``"xla"``).
     """
+    if decode_backend not in DECODE_BACKENDS:
+        raise ValueError(f"decode_backend must be one of {DECODE_BACKENDS}, got {decode_backend!r}")
     x = belief_maps.to(torch.float32)
     batch_shape = x.shape[:-2]
     h, w = x.shape[-2], x.shape[-1]
     flat = x.reshape(-1, h, w).contiguous()
-    scored, count = score_maps(flat)
+    scored, count = (score_maps if decode_backend == "auto" else score_maps_plain)(flat)
     coords, scores = _subpixel_refine(flat, scored, offset_due_to_upsampling, max_peaks)
     valid = torch.arange(max_peaks, device=flat.device)[None, :] < count[:, None]
     return {
@@ -120,12 +127,15 @@ def keypoints_from_belief_maps(
     use_belief_peak_scores: bool = True,
     belief_peak_next_best_score: float = SCORE_GAP_THRESHOLD,
     max_peaks: int = DEFAULT_MAX_PEAKS,
+    decode_backend: str = "auto",
 ):
     """Peaks plus multi-peak disambiguation -> ``(keypoints [..., 2], peaks)``.
 
     Maps that cannot be resolved get the ``(-999.999, -999.999)`` sentinel.
+    ``decode_backend`` is :func:`peaks_from_belief_maps`'s.
     """
-    peaks = peaks_from_belief_maps(belief_maps, offset_due_to_upsampling, max_peaks)
+    peaks = peaks_from_belief_maps(belief_maps, offset_due_to_upsampling, max_peaks,
+                                   decode_backend)
     count = peaks["count"]
     best = peaks["coords"][..., 0, :]
     if use_belief_peak_scores:

@@ -45,6 +45,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -171,19 +172,26 @@ class ConvInt8Kernel:
     def __init__(self):
         self.launches = 0
         self._lib: Optional[ctypes.CDLL] = None
+        # The server's handler threads launch concurrently: the lock keeps
+        # the count exact and the library built and loaded once.
+        self._lock = threading.Lock()
 
     def load(self) -> ctypes.CDLL:
-        if self._lib is None:
-            lib = cuda_build.load("conv_int8_kernel")
-            lib.conv3x3_int8_launch.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ]
-            lib.conv3x3_int8_launch.restype = ctypes.c_int
-            lib.conv3x3_int8_plan.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
-            lib.conv3x3_int8_plan.restype = ctypes.c_int
-            self._lib = lib
+        with self._lock:
+            return self._lib or self._load()
+
+    def _load(self) -> ctypes.CDLL:
+        """Build (unless built) and load the library; the caller holds the lock."""
+        lib = cuda_build.load("conv_int8_kernel")
+        lib.conv3x3_int8_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        lib.conv3x3_int8_launch.restype = ctypes.c_int
+        lib.conv3x3_int8_plan.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+        lib.conv3x3_int8_plan.restype = ctypes.c_int
+        self._lib = lib
         return self._lib
 
     def plan(self, b: int, h: int, w: int, ci: int, co: int, sms: int) -> TilePlan:
@@ -223,7 +231,8 @@ class ConvInt8Kernel:
             )
         if err != 0:
             raise RuntimeError(f"int8 conv kernel launch failed: CUDA error {err}")
-        self.launches += 1
+        with self._lock:
+            self.launches += 1
         return out
 
 

@@ -19,18 +19,27 @@ The solve runs in float32 with full-precision matmuls: reduced-precision
 (TF32/bf16) matmuls wreck the conditioning of the EPnP normal matrix
 (COMPONENTS.md:54), so :func:`solve_pnp` pins "highest" float32 matmul
 precision while it runs.  Norms are written as ``sqrt(sum(x * x))`` as jax
-writes them, so forward-mode derivatives at a zero rotation are NaN on both
-sides and the identity start of the multi-start search behaves the same.
+writes them, except the rotation angle of
+:func:`rotation_matrix_from_axis_angle`, whose Jacobian is finite at a zero
+rotation so that the multi-start search's front-facing starts move (in
+``dream_tpu`` they never do; ROADMAP.md section 3).
+
+torch's forward-mode AD levels (the Gauss-Newton Jacobian's ``jvp``) and
+the float32 matmul precision are process-wide, not per thread: solves on
+two threads at once (the pose server's request handlers) corrupt each
+other's levels, so :func:`solve_pnp` runs one solve at a time.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple, Optional
 
 import torch
 from torch.func import jvp
 
 _EPS = 1e-12
+_SOLVE_LOCK = threading.Lock()  # see the module docstring
 
 
 class PnPResult(NamedTuple):
@@ -92,8 +101,15 @@ def _skew(k: torch.Tensor) -> torch.Tensor:
 
 
 def rotation_matrix_from_axis_angle(rvec: torch.Tensor) -> torch.Tensor:
-    """Rodrigues formula ``[..., 3] -> [..., 3, 3]``; safe at theta -> 0."""
-    theta = _norm(rvec) + _EPS
+    """Rodrigues formula ``[..., 3] -> [..., 3, 3]``; safe at theta -> 0.
+
+    ``theta`` is ``sqrt(|r|^2 + eps^2)``, which equals ``dream_tpu``'s
+    ``|r| + eps`` in float32 wherever ``|r|`` is not below 1e-15, and whose
+    derivative at ``r = 0`` is finite: ``|r| + eps`` has a NaN Jacobian there,
+    so a Gauss-Newton start at the identity rotation (or at a 180-degree
+    flip, whose axis-angle is 0 too) never moved (``dream_tpu`` has the same
+    fault; ROADMAP.md section 3)."""
+    theta = torch.sqrt(torch.sum(rvec * rvec, dim=-1) + _EPS * _EPS)
     K = _skew(rvec / theta[..., None])
     s = torch.sin(theta)[..., None, None]
     c = torch.cos(theta)[..., None, None]
@@ -447,19 +463,20 @@ def solve_pnp(
     Xs = torch.where(w[..., None] > 0, X, torch.zeros((), device=X.device))
     focal = torch.cat([fx, fy], -1)
 
-    previous = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
-    try:
-        R, t = _solve_core(Xs, uv_norm, w, refinement, gn_iters, multi_start)
-        w_final = w
-        if reject_outliers_px is not None:
-            R, t, w_final = _reject_outliers(R, t, Xs, uv_norm, w, focal, reject_outliers_px,
-                                             refinement, gn_iters, multi_start)
-        valid_mask = (w_final > 0).to(torch.float32)
-        err = _pixel_errors(R, t, Xs, uv_norm, valid_mask, focal)
-        mean_err = torch.sum(err * valid_mask, -1) / (torch.sum(valid_mask, -1) + _EPS)
-    finally:
-        torch.set_float32_matmul_precision(previous)
+    with _SOLVE_LOCK:
+        previous = torch.get_float32_matmul_precision()
+        torch.set_float32_matmul_precision("highest")
+        try:
+            R, t = _solve_core(Xs, uv_norm, w, refinement, gn_iters, multi_start)
+            w_final = w
+            if reject_outliers_px is not None:
+                R, t, w_final = _reject_outliers(R, t, Xs, uv_norm, w, focal, reject_outliers_px,
+                                                 refinement, gn_iters, multi_start)
+            valid_mask = (w_final > 0).to(torch.float32)
+            err = _pixel_errors(R, t, Xs, uv_norm, valid_mask, focal)
+            mean_err = torch.sum(err * valid_mask, -1) / (torch.sum(valid_mask, -1) + _EPS)
+        finally:
+            torch.set_float32_matmul_precision(previous)
 
     valid = (n_valid >= 4) & torch.isfinite(t).all(-1) & torch.isfinite(mean_err)
     quat = quaternion_from_rotation_matrix(R)

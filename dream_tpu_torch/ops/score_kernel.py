@@ -33,6 +33,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import threading
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
@@ -237,28 +238,35 @@ class ScoreKernel:
     def __init__(self):
         self.launches = 0
         self._lib: Optional[ctypes.CDLL] = None
+        # The server's handler threads launch concurrently: the lock keeps
+        # the count exact and the library built and loaded once.
+        self._lock = threading.Lock()
         self._tables: Dict[Tuple[int, int, torch.device], Tuple[torch.Tensor, np.ndarray]] = {}
 
     def load(self) -> ctypes.CDLL:
-        if self._lib is None:
-            lib = cuda_build.load("score_kernel")
-            lib.score_kernel_launch.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-            ]
-            lib.score_kernel_launch.restype = ctypes.c_int
-            lib.score_kernel_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
-            lib.score_kernel_smem_bytes.restype = ctypes.c_size_t
-            for name in ("taps", "max_cluster"):
-                getattr(lib, f"score_kernel_{name}").argtypes = []
-                getattr(lib, f"score_kernel_{name}").restype = ctypes.c_int
-            built = (lib.score_kernel_taps(), lib.score_kernel_max_cluster(),
-                     lib.score_kernel_smem_bytes(7, 30, 100), lib.score_kernel_smem_bytes(7, 9, 100))
-            if built != (_TAPS, _MAX_CLUSTER, smem_bytes(7, 30, 100), smem_bytes(7, 9, 100)):
-                raise RuntimeError(f"the built score kernel (taps, cluster, shared memory) {built} "
-                                   "does not match its plan")
-            self._lib = lib
+        with self._lock:
+            return self._lib or self._load()
+
+    def _load(self) -> ctypes.CDLL:
+        """Build (unless built) and load the library; the caller holds the lock."""
+        lib = cuda_build.load("score_kernel")
+        lib.score_kernel_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+        ]
+        lib.score_kernel_launch.restype = ctypes.c_int
+        lib.score_kernel_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        lib.score_kernel_smem_bytes.restype = ctypes.c_size_t
+        for name in ("taps", "max_cluster"):
+            getattr(lib, f"score_kernel_{name}").argtypes = []
+            getattr(lib, f"score_kernel_{name}").restype = ctypes.c_int
+        built = (lib.score_kernel_taps(), lib.score_kernel_max_cluster(),
+                 lib.score_kernel_smem_bytes(7, 30, 100), lib.score_kernel_smem_bytes(7, 9, 100))
+        if built != (_TAPS, _MAX_CLUSTER, smem_bytes(7, 30, 100), smem_bytes(7, 9, 100)):
+            raise RuntimeError(f"the built score kernel (taps, cluster, shared memory) {built} "
+                               "does not match its plan")
+        self._lib = lib
         return self._lib
 
     def _table(self, h: int, w: int, device: torch.device) -> Tuple[torch.Tensor, np.ndarray]:
@@ -303,7 +311,8 @@ class ScoreKernel:
             )
         if err != 0:
             raise RuntimeError(f"score kernel launch failed: CUDA error {err}")
-        self.launches += 1
+        with self._lock:
+            self.launches += 1
         return scored, count
 
 

@@ -11,7 +11,9 @@ frame mixes them; None, Sub and Up are undone across a whole row at once
 (Sub as a cumulative sum mod 256 per channel), Average and Paeth depend on
 the pixel to their left and run along the row in Python, which is
 affordable because encoders choose them for few rows.  Palette images, other bit depths and interlaced files raise
-``ValueError`` naming the file, as does a JPEG.  :func:`write_png` writes
+``ValueError`` naming the file, as does a JPEG.  :func:`decode_png` does the
+same for bytes in memory (an HTTP request's body), and :func:`read_png`
+reads a file and calls it.  :func:`write_png` writes
 RGB with the Up filter on every row at zlib level 6.
 """
 
@@ -75,7 +77,12 @@ def _unfilter(raw: bytes, height: int, width: int, bpp: int, path: str) -> np.nd
 def read_png(path: str) -> np.ndarray:
     """Decode an 8-bit PNG file to uint8 RGB ``[H, W, 3]``."""
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_png(f.read(), path)
+
+
+def decode_png(data: bytes, path: str = "PNG data") -> np.ndarray:
+    """Decode the bytes of an 8-bit PNG to uint8 RGB ``[H, W, 3]``; ``path``
+    names the source in errors (a file, a request body)."""
     if not data.startswith(_SIGNATURE):
         if data.startswith(b"\xff\xd8"):
             raise ValueError(f"{path}: JPEG frames are not supported by the port's reader (PNG only)")

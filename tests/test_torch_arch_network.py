@@ -59,6 +59,17 @@ SIDECARS = {
 NET_IN = 64
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Small tensors, where torch's idle intra-op threads spin for nothing
+    and slow the other test workers: two threads take less CPU time than
+    the machine's count."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 def small_config(arch, dtype="float32"):
     """A committed sidecar at a 64x64 net input, no clipping; ``2-stage`` is
     vgg-Q's with ``n_stages: 2``, the ResNet has one block a layer."""

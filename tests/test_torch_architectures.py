@@ -57,6 +57,17 @@ RESNETS = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Small tensors, where torch's idle intra-op threads spin for nothing
+    and slow the other test workers: two threads take less CPU time than
+    the machine's count."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 def draw_variables(jax_model, seed, **kwargs):
     """numpy draws of the JAX model's variables: lecun-like kernels,
     BatchNorm scales in [0.5, 1.5], running variances in [0.5, 2], the rest

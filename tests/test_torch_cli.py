@@ -13,14 +13,23 @@ dream_tpu.
   ``keypoints.csv``: the same names, values within 1e-3 px.
   ``pnp_results.csv``: the same names, successes and in-frame counts, and
   poses within 1e-3 (m, quaternion entries) and ADD within 1e-3 m on the
-  frames PnP got six detections or more for.  With five, the leave-one-out
+  frames PnP got six detections or more for, but frames 000002 and 000005
+  (:data:`FRONT_START_WINS`, the port's one departure in PnP,
+  ``tests/test_torch_pnp_metrics.py``): plain, dream_tpu publishes one of
+  its front-facing PnP starts unmoved there, where the port's moves and
+  lands at a lower ADD; with outlier rejection, frame 000005's
+  leave-one-out solves part.  With five, the leave-one-out
   candidates are four-point solves with several minima of near-equal cost
   (``tests/test_torch_pnp_modes.py``), and the packages' float32 solves
   part there (two of the 8 frames, ADD 0.27 against 0.38 m; both poses
   are off by decimetres, as at this size every pose is).
   ``analysis_results.txt``: line for line the same once paths and numbers
-  are masked, counts equal, and the other numbers within 1e-3 (the ADD
-  statistics only in the plain run, for the reason above).
+  are masked, counts equal, and the other numbers within 1e-3.  The ADD
+  statistics take those frames in, so in the plain run they are held
+  instead to dream_tpu's own report writer and ``pnp_metrics`` fed the
+  port's poses, their ADDs by dream_tpu's ``add_from_pose`` (in the other
+  run, where outlier rejection picks the points ADD averages over, they
+  are not held, for the five-detection frames above).
 - (b) Training: the port's CLI for 2 epochs, then ``-r -e 3`` (with
   ``--cache-device``) on 16 frames, ``-b 4 -not-a``, with clipping, a
   cosine schedule, an EMA, and checkpoints and validation every second
@@ -63,6 +72,7 @@ from flax import serialization
 
 from dream_tpu import analysis as jax_analysis
 from dream_tpu import network as jax_network
+from dream_tpu.ops import geometric_vision as jgv
 from dream_tpu.data.synthetic import generate_synthetic_ndds as jax_generate_synthetic_ndds
 
 from dream_tpu_torch import analysis
@@ -78,6 +88,7 @@ from dream_tpu_torch.cli import train_network as train_cli
 from dream_tpu_torch.data.dataset import make_batch_processor
 from dream_tpu_torch.network import DreamNetwork
 from dream_tpu_torch.utils.config import load_yaml, save_yaml
+from dream_tpu_torch.utils.ndds import find_ndds_data_in_dir, load_keypoints
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MANIP = os.path.join(ROOT, "manip_configs", "panda.yaml")
@@ -175,6 +186,44 @@ def _masked(line):
     return NUMBER.sub("#", text), [float(x) for x in NUMBER.findall(text)]
 
 
+# The evaluation frames where the port's pose departs from dream_tpu's
+# because dream_tpu's front-facing PnP starts never move
+# (tests/test_torch_pnp_metrics.py).  Plain, dream_tpu publishes such a start
+# itself (the identity or a 180-degree flip, as it started), and the port
+# lands at a lower ADD.  With outlier rejection, frame 000005's
+# leave-one-out solves part, and the packages keep different points; with
+# dream_tpu's starts repaired as the port's are, the two agree there.
+FRONT_START_WINS = {"plain": {"000002", "000005"}, "weighted+reject": {"000005"}}
+
+
+def _report_from_port_poses(env, ours_dir, ref_kp_metrics):
+    """analysis_results.txt as dream_tpu's writer makes it from the port's
+    PnP poses: ADD (both conventions) by dream_tpu's ``add_from_pose`` over
+    the detected keypoints, aggregated by its ``pnp_metrics``."""
+    net = env["jax_net"]
+    kp_rows, pnp_rows = (_rows(os.path.join(ours_dir, f))[1:] for f in ("keypoints.csv", "pnp_results.csv"))
+    found_data, _ = find_ndds_data_in_dir(env["eval_data"])
+    adds = {"standard": [], "transposed": []}
+    for datum, kp_row, row in zip(found_data, kp_rows, pnp_rows):
+        detected = np.array(kp_row[1:15], float).reshape(7, 2)
+        mask = jnp.asarray(~((detected[:, 0] < -999.0) & (detected[:, 1] < -999.0)), jnp.float32)
+        positions = jnp.asarray(load_keypoints(datum["data_path"], net.manipulator_name,
+                                               net.keypoint_names)["positions_wrt_cam"], jnp.float32)
+        pose = np.array(row[2:9], np.float32)
+        for convention, out in adds.items():
+            out.append(float(jgv.add_from_pose(jnp.asarray(pose[:3]), jnp.asarray(pose[3:]), positions, mask,
+                                               rotation_convention=convention))
+                       if row[1] == "True" else -999.99)
+    n_inframe = [int(row[-1]) for row in pnp_rows]
+    path = os.path.join(ours_dir, "expected_analysis_results.txt")
+    jax_analysis._write_analysis_report(
+        path, env["eval_data"], env["config"], len(pnp_rows), ref_kp_metrics,
+        jax_analysis.pnp_metrics(adds["standard"], n_inframe), True,
+        pnp_alt=jax_analysis.pnp_metrics(adds["transposed"], n_inframe))
+    with open(path) as f:
+        return f.read().splitlines(), adds["standard"]
+
+
 @pytest.mark.parametrize("mode", ["plain", "weighted+reject"])
 def test_analyze_ndds_dataset_matches_jax(env, mode):
     kwargs = dict(visualize_belief_maps=False, batch_size=4, num_workers=2)
@@ -197,10 +246,18 @@ def test_analyze_ndds_dataset_matches_jax(env, mode):
     assert a[0] == b[0] and len(a) == 9
     for ra, rb, n_detected in zip(a[1:], b[1:], detected):
         assert ra[:2] == rb[:2] and ra[-1] == rb[-1], (ra, rb)
-        if n_detected >= 6:
+        if ra[0] in FRONT_START_WINS[mode]:
+            if mode == "plain":
+                start = np.abs(np.array(rb[5:9], float))  # dream_tpu's quaternion: a unit axis
+                assert np.sort(start)[-1] == 1.0 and np.sort(start)[-2] == 0.0, (ra, rb)
+                assert ra[1] == "True" and float(ra[-2]) < float(rb[-2]) - 0.01, (ra, rb)
+        elif n_detected >= 6:
             np.testing.assert_allclose(np.array(ra[2:-1], float), np.array(rb[2:-1], float),
                                        atol=1e-3, rtol=0, err_msg=ra[0])
     assert (detected >= 6).sum() >= 4
+    if mode == "plain":
+        expected_lines, expected_adds = _report_from_port_poses(env, ours_dir, ref[0])
+        np.testing.assert_allclose([float(r[-2]) for r in a[1:]], expected_adds, atol=1e-3, rtol=0)
 
     with open(os.path.join(ours_dir, "analysis_results.txt")) as f:
         ours_lines = f.read().splitlines()
@@ -214,8 +271,14 @@ def test_analyze_ndds_dataset_matches_jax(env, mode):
         if re.search(r"\(\d+/\d+\)$", la):  # "share% (count/total)": exact counts
             assert na[1:] == nb[1:], (la, lb)
         add_section = add_section or la.startswith("ADD (m)")
-        if mode == "plain" or not add_section:
+        if not add_section:
             np.testing.assert_allclose(na, nb, atol=1e-3, rtol=0, err_msg=la)
+    if mode == "plain":
+        assert len(ours_lines) == len(expected_lines)
+        for la, le in zip(ours_lines, expected_lines):
+            (ta, na), (te, ne) = _masked(la), _masked(le)
+            assert ta == te, (la, le)
+            np.testing.assert_allclose(na, ne, atol=1e-3, rtol=0, err_msg=la)
 
 
 def test_train_cli_trains_resumes_and_writes_flax_state(env):

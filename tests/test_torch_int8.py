@@ -92,6 +92,17 @@ QAT_CONFIG = os.path.join(ROOT, "trained_models/results_r5/vggq_qat/dream_vgg_q_
 RAW, NET_IN, NET_OUT = (128, 96), (64, 64), (16, 16)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Small tensors, where torch's idle intra-op threads spin for nothing
+    and slow the other test workers: two threads take less CPU time than
+    the machine's count."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _rand_case(rng, b, h, w, ci, co):
     """``tests/test_pallas_conv.py``'s inputs, as numpy."""
     x_q = rng.randint(-127, 128, (b, h, w, ci)).astype(np.int8)

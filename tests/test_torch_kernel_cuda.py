@@ -278,3 +278,39 @@ def test_conv_int8_kernel_rejects_bad_inputs(cuda):
         kernel(x_q[..., :16].contiguous(), w_q[..., :16].contiguous(), k, bias)
     with pytest.raises(ValueError):  # mismatched channels
         kernel(x_q, w_q[..., :16].contiguous(), k, bias)
+
+
+@pytest.mark.cuda
+def test_launch_counts_hold_across_threads(cuda):
+    """The pose server launches the score and int8 conv kernels from its
+    handler threads: no launch is lost from the counts."""
+    import sys
+    import threading
+
+    maps = torch.from_numpy(_maps(np.random.RandomState(8), 7, 100, 100)).to(cuda)
+    x_q = torch.randint(-127, 128, (1, 25, 25, 64), dtype=torch.int8, device=cuda)
+    w_q = torch.randint(-127, 128, (64, 3, 3, 64), dtype=torch.int8, device=cuda)
+    k = torch.full((64,), 1e-4, device=cuda)
+    b = torch.zeros(64, device=cuda)
+    score, conv = score_kernel.score_maps_kernel, conv_int8.conv3x3_int8_kernel
+    before = (score.launches, conv.launches)
+    n_threads, calls = 24, 20
+
+    def launch():
+        for _ in range(calls):
+            score(maps)
+            conv(x_q, w_q, k, b)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=launch) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+    finally:
+        sys.setswitchinterval(interval)
+    torch.cuda.synchronize()
+    assert not any(t.is_alive() for t in threads)
+    assert (score.launches - before[0], conv.launches - before[1]) == (n_threads * calls,) * 2

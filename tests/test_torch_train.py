@@ -59,6 +59,17 @@ EMA_DECAY = 0.5
 CLIP_NORM = 0.25
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Small tensors, where torch's idle intra-op threads spin for nothing
+    and slow the other test workers: two threads take less CPU time than
+    the machine's count."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 def small_config():
     """The r5 vgg-Q sidecar at a 64x64 net input, float32."""
     cfg = jax_load_yaml(CONFIG)
