@@ -177,12 +177,47 @@ since the script started, `elapsed_s`):
    client's frames/s, the export times, the .pt2 sizes, and each
    artifact's ms a frame at batch 1.
 
+25. the exact int32 route of the quantized conv graphs
+   (dream_tpu_torch/ops/conv_int32.py: torch._int_mm on im2col matrices,
+   transposed convs by phases) against its plain float64 version, bit for
+   bit, on random int8 operands at every distinct conv of vgg-F's int8
+   graph and of ResNet-H/F's deploy graphs at B=2 (400x400 input: the 7x7
+   stride-2 stem, 1x1, 3x3 stride 2, the 4x4 stride-2 transposed convs at
+   each upsampler's size) and at an odd transposed conv;
+26. vgg-F r5 with --int8-calibration-frames 32 (the quantconv graph)
+   through the evaluation CLI on the phase-17 holdout, batch 16, in its
+   sidecar's bf16, against phase 18's float run of the same checkpoint:
+   in-frame found within 6, PCK AUC within 0.02, ADD AUC within 0.03, PnP
+   at least 56/60, the score kernel once a batch and the int8 conv kernel
+   never; one batch's int8 maps correlating with the float maps at >= 0.99;
+27. ResNet-H and ResNet-F at full width from the port's initial parameters
+   in bf16: the BatchNorm-folded deploy graph in float32 against the
+   BatchNorm model's eval maps (largest difference at most 1e-3 of the
+   largest map value, correlation >= 0.99999), then int8 after calibrating
+   on the holdout's first 32 frames: maps correlating with the float maps at
+   >= 0.98, the score kernel once a batch of 16;
+28. the export CLI on vgg-F r5 with --int8-calibration-dir (the holdout, 32
+   frames, batch 1, 640x480): the sidecar names the quantconv graph; the
+   .pt2 loaded in a subprocess that imports torch alone and run over 16
+   holdout frames, equal to the in-process artifact, no kernel launched,
+   and against the live int8 network: found state equal on all but 1% of
+   the keypoints, median distance at most 0.05 px;
+29. vgg-Q from the r5 sidecar with the soft-argmax head (learned beta),
+   port initial parameters, batch 16 in float32, bf16 and int8 (quantconv):
+   the keypoints within 1e-3 px of a float64 soft-argmax of the returned
+   maps, no kernel launched; DOPE at [1, 400, 400, 3] gives six [1, 7, 50,
+   50] stage maps; then timings: the int8 forward at B=16 against the bf16
+   forward for vgg-F, ResNet-H and ResNet-F, the exact route's ms summed
+   over each graph's convs at B=16 and its peak memory, phase 26's CLI
+   frames/s against phase 18's, and the soft-argmax decode at B=16.
+
 Then a line listing the kernels with their measurements (each row's ms and
 library_ms time the same work; the score and warp rows' ms is device time
 from a CUDA graph, and the warp's library_ms too; the score row adds its
 device time at phase 15's shapes; redesigned_in names the design the kernel
-now has; launches are counted on the CLI runs of phases 18-19 and the
-counted serving runs of phases 21-22), and as the last line
+now has; launches are counted on the CLI runs of phases 18-19, the
+counted serving runs of phases 21-22 and, for the score kernel, the int8
+runs of phases 26-27), and as the last line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
 before that line.  Without CUDA the script exits non-zero at once.
 """
@@ -769,7 +804,8 @@ def workflow_phases(kernels_of_port, reset_counts, smi, holdout):
                                    os.path.join(REFERENCE_DIR, "keypoints.csv"))
     progress("evaluation_cli_layout", report="the committed report's lines, paths and numbers masked",
              csv="the committed headers and row names", keypoints_vs_committed=agreement)
-    evaluate_cli("vgg-F r5 bf16", ["-i", VGGF_CHECKPOINT], VGGF_REFERENCE, outframe_tol=2, min_pnp=57)
+    _, vggf_result, vggf_eval_s, _ = evaluate_cli("vgg-F r5 bf16", ["-i", VGGF_CHECKPOINT],
+                                                  VGGF_REFERENCE, outframe_tol=2, min_pnp=57)
     ptq_dir, _, _, ptq_counts = evaluate_cli(
         "vgg-Q r4 PTQ", ["-i", R4_CHECKPOINT, "--int8-calibration-frames", str(CALIBRATION_FRAMES)],
         INT8_REFERENCES["ptq_r4"])
@@ -950,7 +986,8 @@ def workflow_phases(kernels_of_port, reset_counts, smi, holdout):
     progress("workflow_timings", **out["timings"])
     # What the serving phases read; the caller removes the directory.
     out["work"] = {"tmp_dir": tmp_dir, "hold": hold, "disk": disk, "vggq_dir": vggq_dir,
-                   "vggq_pnp": plain["pnp"], "ptq_dir": ptq_dir}
+                   "vggq_pnp": plain["pnp"], "ptq_dir": ptq_dir,
+                   "vggf": {"result": vggf_result, "seconds": vggf_eval_s}}
     return out
 
 
@@ -1388,6 +1425,314 @@ def serving_phases(kernels_of_port, reset_counts, smi, work):
     del net, r4, server, server8, server_a
     torch.cuda.empty_cache()
     return out
+
+
+def quant_conv_shapes(model, x_shape):
+    """Each distinct quantizable conv of ``model`` in a forward over an
+    input of ``x_shape``, on the meta device: ``{(kind, input shape, weight
+    shape, stride, padding, output_padding): times it runs}``."""
+    from dream_tpu_torch.models.quant import QuantConvTranspose2d, quant_convs
+
+    seen = {}
+
+    def record(module, args):
+        kind = "transposed" if isinstance(module, QuantConvTranspose2d) else "conv"
+        key = (kind, tuple(args[0].shape), tuple(module.weight.shape), module.stride[0],
+               module.padding[0], module.output_padding[0] if kind == "transposed" else 0)
+        seen[key] = seen.get(key, 0) + 1
+
+    hooks = [conv.register_forward_pre_hook(record) for conv in quant_convs(model).values()]
+    with torch.no_grad():
+        model(torch.empty(x_shape, device="meta"))
+    for hook in hooks:
+        hook.remove()
+    return seen
+
+
+def zoo_graphs():
+    """The quantized graphs of phases 25-29 on the meta device: vgg-F's
+    hourglass and the ResNets' deploy graphs, in int8 mode."""
+    from dream_tpu_torch.models import DreamHourglass, ResnetSimpleDeploy
+
+    with torch.device("meta"):
+        return {"vgg-F": DreamHourglass(7, deconv_decoder=True, quant_mode="int8"),
+                "resnet-H": ResnetSimpleDeploy(7, full=False, mode="int8"),
+                "resnet-F": ResnetSimpleDeploy(7, full=True, mode="int8")}
+
+
+def route_operands(gen, key):
+    x_shape, w_shape = key[1:3]
+    x_q = torch.randint(-127, 128, x_shape, generator=gen, device="cuda", dtype=torch.int8)
+    w_q = torch.randint(-127, 128, w_shape, generator=gen, device="cuda", dtype=torch.int8)
+    return x_q, w_q
+
+
+def route_fns(key):
+    """(the exact route, its plain version) for one conv shape."""
+    from dream_tpu_torch.ops import conv_int32
+
+    kind, _, _, stride, pad, out_pad = key
+    if kind == "conv":
+        return (lambda x, w: conv_int32.conv2d_int32(x, w, stride, pad),
+                lambda x, w: conv_int32.conv2d_int32_plain(x, w, stride, pad))
+    return (lambda x, w: conv_int32.conv_transpose2d_int32(x, w, stride, pad, out_pad),
+            lambda x, w: conv_int32.conv_transpose2d_int32_plain(x, w, stride, pad, out_pad))
+
+
+def zoo_phases(kernels_of_port, reset_counts, smi, work, gen):
+    """Phases 25-29: the int8 graphs of vgg-F and the ResNets (the exact
+    int32 route on the card, the evaluation CLI, the ResNets' folded deploy
+    graphs, export), the soft-argmax head and DOPE, and their timings.
+    Returns the score kernel's launches in phases 26-27."""
+    from dream_tpu_torch.cli import export_inference as export_cli
+    from dream_tpu_torch.cli import network_inference_dataset as eval_cli
+    from dream_tpu_torch.data.dataset import collect_calibration_batches
+    from dream_tpu_torch.export import load_inference
+    from dream_tpu_torch.models import DopeNetworkBelief, ResnetSimpleDeploy, fold_batchnorm_resnet
+    from dream_tpu_torch.network import DreamNetwork, create_network_from_config_file
+    from dream_tpu_torch.ops.spatial_softmax import soft_argmax
+
+    def launches():
+        return {k: v.launches for k, v in kernels_of_port.items()}
+
+    hold, disk, tmp = work["hold"], work["disk"], work["tmp_dir"].name
+    score_launches = 0
+    images16 = torch.from_numpy(disk.load_images(range(16))).cuda()
+    timings = {"card": smi}
+
+    # 25. The exact route against its plain version, bit for bit, at every
+    # distinct conv of vgg-F's int8 graph and of the ResNets' deploy graphs
+    # at B=2 (400x400 input), and an odd transposed conv.
+    graphs = zoo_graphs()
+    keys = {}
+    for name, graph in graphs.items():
+        for key in quant_conv_shapes(graph, (2, 3, 400, 400)):
+            keys.setdefault(key, name)
+    keys[("transposed", (3, 24, 13, 11), (24, 16, 3, 3), 2, 1, 1)] = "odd"
+    route_err = {}
+    for key, name in keys.items():
+        x_q, w_q = route_operands(gen, key)
+        route, plain = route_fns(key)
+        got, want = route(x_q, w_q), plain(x_q, w_q)
+        diff = int((got.long() - want.long()).abs().max())
+        if got.dtype != torch.int32 or got.shape != want.shape or diff != 0:
+            raise AssertionError(f"the exact route differs from its plain version at {key}: {diff}")
+        route_err[f"{name} {key[0]} {list(key[1])}x{list(key[2])} s{key[3]} p{key[4]}"] = diff
+        del x_q, w_q, got, want
+    progress("exact_route_vs_plain", cases=len(route_err), max_abs_err=max(route_err.values()),
+             shapes=list(route_err))
+
+    # 26. vgg-F r5 int8 through the evaluation CLI on the phase-17 holdout,
+    # against phase 18's bf16 float run of the same checkpoint.
+    out_dir = os.path.join(tmp, "eval_vggf_int8")
+    args = eval_cli.make_parser().parse_args(
+        ["-i", VGGF_CHECKPOINT, "--int8-calibration-frames", str(CALIBRATION_FRAMES), "-d", hold,
+         "-o", out_dir, "--no-visualization", "-b", "16", "-w", "8"])
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (kp, pnp), _ = quiet(eval_cli.network_inference_dataset, args)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    counts = launches()
+    score_launches += counts["score_kernel"]
+    ref_kp, ref_pnp = work["vggf"]["result"]["keypoints"], work["vggf"]["result"]["pnp"]
+    measured = {"inframe_found": [kp["num_found_gt_inframe"], kp["num_gt_inframe"]],
+                "outframe_found": [kp["num_found_gt_outframe"], kp["num_gt_outframe"]],
+                "pck_auc": kp["l2_error_auc"], "pnp_success": [pnp["num_pnp_found"], pnp["num_pnp_possible"]],
+                "add_auc": pnp["add_auc"]}
+    float_run = {"inframe_found": ref_kp["num_found_gt_inframe"], "pck_auc": ref_kp["l2_error_auc"],
+                 "pnp_success": ref_pnp["num_pnp_found"], "add_auc": ref_pnp["add_auc"]}
+    failures = []
+    if abs(kp["num_found_gt_inframe"] - ref_kp["num_found_gt_inframe"]) > 6:
+        failures.append("in-frame found not within 6 of the float run's")
+    if abs(kp["l2_error_auc"] - ref_kp["l2_error_auc"]) > 0.02:
+        failures.append("PCK AUC not within 0.02 of the float run's")
+    if not abs(pnp["add_auc"] - ref_pnp["add_auc"]) <= 0.03:
+        failures.append("ADD AUC not within 0.03 of the float run's")
+    if pnp["num_pnp_possible"] != 60 or pnp["num_pnp_found"] < 56:
+        failures.append(f"PnP {pnp['num_pnp_found']}/{pnp['num_pnp_possible']} below 56/60")
+    if counts["score_kernel"] != HOLDOUT_FRAMES // 16 or counts["conv_int8_kernel"] != 0:
+        failures.append(f"launches {counts}: the score kernel once a batch, the conv kernel never")
+    # One batch's int8 maps against the float maps, the CLI's calibration.
+    vggf = create_network_from_config_file(VGGF_CONFIG, VGGF_CHECKPOINT, device="cuda")
+    x16 = vggf.preprocess(images16)
+    float_maps, _ = vggf.inference(x16)
+    process = processor_for(vggf, augment=False)
+    calib = collect_calibration_batches(
+        disk, lambda g, images, kp: process(g, images.cuda(), kp.cuda()), CALIBRATION_FRAMES, 16)
+    vggf.enable_int8_inference(calib)
+    int8_maps, _ = vggf.inference(x16)
+    corr = map_correlation(int8_maps, float_maps)
+    if vggf.int8_impl != "quantconv" or not corr >= 0.99:
+        failures.append(f"int8 graph {vggf.int8_impl}, maps correlate with float at {corr} (< 0.99)")
+    progress("vggf_int8_cli", seconds=cli_s, frames_per_s=HOLDOUT_FRAMES / cli_s,
+             float_cli_frames_per_s=HOLDOUT_FRAMES / work["vggf"]["seconds"], launches=counts,
+             measured=measured, float_run=float_run, int8_vs_float_map_correlation=corr,
+             int8_graph=vggf.int8_impl)
+    if failures:
+        raise AssertionError("vgg-F int8 through the evaluation CLI: " + "; ".join(failures))
+    timings["vggf_cli_frames_per_s"] = {"int8": HOLDOUT_FRAMES / cli_s,
+                                        "bf16": HOLDOUT_FRAMES / work["vggf"]["seconds"]}
+    nets = {"vgg-F": vggf}
+
+    # 27. ResNet-H and ResNet-F int8 at full width from the port's initial
+    # parameters, in bf16, calibrated on the holdout's first 32 frames.
+    resnet_out = {}
+    for arch, (config, side) in RESNETS.items():
+        net = load_network(config, seed=0)
+        x = net.preprocess(images16)
+        process = processor_for(net, augment=False)
+        calib = collect_calibration_batches(
+            disk, lambda g, images, kp: process(g, images.cuda(), kp.cuda()), CALIBRATION_FRAMES, 16)
+        # The folded graph in float mode against the BatchNorm model, float32.
+        state = net.model.state_dict()
+        bn32 = DreamNetwork(config_in(config, "float32"), device="cuda")
+        bn32.model.load_state_dict(state, strict=True)
+        deploy = ResnetSimpleDeploy(7, full=net.model.full).cuda()
+        deploy.load_state_dict(fold_batchnorm_resnet(state), strict=True)
+        x2 = x[:2].permute(0, 3, 1, 2)
+        with torch.no_grad():
+            bn_maps, folded_maps = bn32.model.eval()(x2), deploy(x2)
+        fold_err = float((bn_maps - folded_maps).abs().max() / bn_maps.abs().max())
+        fold_corr = map_correlation(folded_maps, bn_maps)
+        del bn32, deploy, bn_maps, folded_maps
+        float_maps, _ = net.inference(x)
+        net.enable_int8_inference(calib)
+        reset_counts()
+        int8_maps, keypoints = net.inference(x)
+        counts = launches()
+        score_launches += counts["score_kernel"]
+        corr = map_correlation(int8_maps, float_maps)
+        resnet_out[arch] = {"fold_max_err_over_max": fold_err, "fold_correlation": fold_corr,
+                            "int8_vs_float_map_correlation": corr, "maps": list(int8_maps.shape),
+                            "launches": counts, "int8_graph": net.int8_impl,
+                            "keypoints_found": int((keypoints[..., 0] > -999).sum())}
+        if not (fold_err <= 1e-3 and fold_corr >= 0.99999):
+            raise AssertionError(f"{arch}: the folded graph against the BatchNorm model: {resnet_out[arch]}")
+        if (not corr >= 0.98 or tuple(int8_maps.shape) != (16, 7, side, side)
+                or counts["score_kernel"] != 1 or counts["conv_int8_kernel"] != 0):
+            raise AssertionError(f"{arch} int8: {resnet_out[arch]}")
+        nets[arch] = net
+        del float_maps, int8_maps
+    progress("resnet_int8", card=smi, results=resnet_out)
+
+    # 28. Export of vgg-F r5's quantconv graph (batch 1, 640x480), loaded in
+    # a subprocess with torch alone and run over 16 holdout frames, against
+    # the live int8 network.
+    path = os.path.join(tmp, "vggf_int8.pt2")
+    args = export_cli.make_parser().parse_args(
+        ["-i", VGGF_CHECKPOINT, "--int8-calibration-dir", hold, "--int8-calibration-frames",
+         str(CALIBRATION_FRAMES), "-o", path, "-b", "1", "--raw-resolution", "640x480", "--device", "cuda"])
+    t0 = time.perf_counter()
+    (live, data), text = quiet(export_cli.export_inference_cli, args)
+    export_s = time.perf_counter() - t0
+    with open(path + ".meta.json") as f:
+        meta = json.load(f)
+    frames16 = images16.cpu().numpy()
+    frames_path = os.path.join(tmp, "frames16.npy")
+    np.save(frames_path, frames16)
+    script = (
+        "import json, sys\n"
+        "import numpy as np\n"
+        "import torch\n"
+        f"call = torch.export.load({path!r}).module()\n"
+        f"frames = torch.from_numpy(np.load({frames_path!r})).cuda()\n"
+        "with torch.no_grad():\n"
+        "    kps = [call(frames[i:i + 1])[1][0].cpu().tolist() for i in range(len(frames))]\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('dream_tpu_torch', 'dream_tpu', 'jax'))\n"
+        "print(json.dumps({'modules': bad, 'keypoints': kps}))\n")
+    ran = subprocess.run([sys.executable, "-c", script], cwd=tmp, capture_output=True, text=True,
+                         timeout=300, env={**os.environ, "PYTHONPATH": ""})
+    if ran.returncode != 0:
+        raise AssertionError(f"the torch-only load of the int8 vgg-F artifact failed:\n{ran.stderr[-3000:]}")
+    loaded = json.loads(ran.stdout.strip().splitlines()[-1])
+    artifact_kp = np.asarray(loaded["keypoints"])
+    call = load_inference(data)
+    reset_counts()
+    with torch.no_grad():
+        here = np.stack([call(images16[i:i + 1])[1][0].cpu().numpy() for i in range(16)])
+    artifact_counts = launches()
+    live_kp = np.stack([live.keypoints_from_image(frame)["detected_keypoints"] for frame in frames16])
+    agreement = detection_agreement(artifact_kp, live_kp)
+    progress("vggf_int8_export", export_s=export_s, bytes=len(data), int8_impl=meta["int8_impl"],
+             live_int8_graph=live.int8_impl, modules_of_the_package=loaded["modules"],
+             subprocess_equal_in_process=bool(np.array_equal(artifact_kp, here)),
+             launches_during_artifact_calls=artifact_counts, artifact_vs_live=agreement)
+    if (meta["int8_impl"] != "quantconv" or live.int8_impl != "quantconv" or loaded["modules"]
+            or not np.array_equal(artifact_kp, here) or any(artifact_counts.values())):
+        raise AssertionError("the int8 vgg-F artifact: see the line above")
+    if agreement["same_found_state"] < agreement["keypoints"] - agreement["keypoints"] // 100 \
+            or agreement["median_px"] > 0.05:
+        raise AssertionError(f"the int8 vgg-F artifact against the live int8 network: {agreement}")
+    timings["vggf_int8_export_s"] = export_s
+    del live, call, data
+
+    # 29. The soft-argmax head on vgg-Q (the r5 sidecar, port initial
+    # parameters) in float32, bf16 and int8, and DOPE.
+    soft = {}
+    for label, dtype in (("float32", "float32"), ("bfloat16", "bfloat16"), ("int8", "bfloat16")):
+        cfg = config_in(CONFIG, dtype)
+        cfg["architecture"]["spatial_softmax"] = {"learned_beta": True, "initial_beta": 1.0}
+        cfg["architecture"]["output_heads"] = ["belief_maps", "keypoints"]
+        net = DreamNetwork(cfg, device="cuda", seed=0)
+        x = net.preprocess(images16)
+        if label == "int8":
+            net.enable_int8_inference([net.preprocess(images16)])
+        reset_counts()
+        maps, keypoints = net.inference(x)
+        counts = launches()
+        ref = soft_argmax(maps.double(), net.model.beta.detach().double())
+        err = float((keypoints.double() - ref).abs().max())
+        soft[label] = {"max_px_vs_float64": err, "launches": counts, "maps": list(maps.shape),
+                       "int8_graph": net.int8_impl}
+        if err > 1e-3 or any(counts.values()) or tuple(keypoints.shape) != (16, 7, 2):
+            raise AssertionError(f"soft-argmax head, {label}: {soft[label]}")
+    maps16 = maps.float()
+    beta = net.model.beta.detach()
+    timings["soft_argmax_decode_ms_b16"] = cuda_ms(lambda: soft_argmax(maps16, beta), 20)
+    dope = DopeNetworkBelief(7, stage_out=6, generator=torch.Generator().manual_seed(0)).cuda().eval()
+    with torch.no_grad():
+        stages = dope(x16[:1].permute(0, 3, 1, 2).float())
+    dope_shapes = [list(s.shape) for s in stages]
+    if dope_shapes != [[1, 7, 50, 50]] * 6 or not all(bool(torch.isfinite(s).all()) for s in stages):
+        raise AssertionError(f"DOPE stages {dope_shapes}")
+    progress("soft_argmax_and_dope", soft_argmax=soft, dope_stages=dope_shapes)
+    del net, dope, stages
+
+    # Timings: the int8 forward against bf16 at B=16, the exact route over
+    # each graph's convs, peak memory.
+    forward = {}
+    for arch, net in nets.items():
+        x = net.preprocess(images16)
+        int8_ms = cuda_ms(lambda: net._belief_maps(x), 3, warmup=1)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        net._belief_maps(x)
+        peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+        int8_graph, net.int8_model = net.int8_model, None
+        bf16_ms = cuda_ms(lambda: net._belief_maps(x), 3, warmup=1)
+        net.int8_model = int8_graph
+        route_ms, route_peak = 0.0, 0.0
+        for key, count in quant_conv_shapes(graphs[arch], (16, 3, 400, 400)).items():
+            x_q, w_q = route_operands(gen, key)
+            route = route_fns(key)[0]
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            route_ms += count * cuda_ms(lambda: route(x_q, w_q), 2, warmup=1)
+            route_peak = max(route_peak, (torch.cuda.max_memory_allocated() - before) / 2**30)
+            del x_q, w_q
+        forward[arch] = {"int8_forward_ms": int8_ms, "bf16_forward_ms": bf16_ms,
+                         "int8_forward_extra_peak_gib": peak_gib, "exact_route_ms_summed": route_ms,
+                         "exact_route_peak_gib": route_peak}
+        torch.cuda.empty_cache()
+    timings["forward_b16"] = forward
+    progress("zoo_timings", **timings)
+    del nets
+    torch.cuda.empty_cache()
+    return score_launches
 
 
 def main():
@@ -1958,8 +2303,14 @@ def main():
 
     # 21-24. The pose server and the torch.export artifacts.
     serving = serving_phases(kernels_of_port, reset_counts, smi, workflow["work"])
+
+    # 25-29. The int8 graphs of vgg-F and the ResNets, the soft-argmax head
+    # and DOPE.
+    zoo_score_launches = zoo_phases(kernels_of_port, reset_counts, smi, workflow["work"],
+                                    torch.Generator(device="cuda").manual_seed(25))
     workflow["work"]["tmp_dir"].cleanup()
     launched = {k: workflow["launches"][k] + serving["launches"].get(k, 0) for k in workflow["launches"]}
+    launched["score_kernel"] += zoo_score_launches
     score_err = max(score_err, serving["max_abs_err"]["score_kernel"])
     conv_cases["serving chain links at B=1"] = serving["max_abs_err"]["conv_int8_kernel"]
 

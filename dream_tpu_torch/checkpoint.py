@@ -19,9 +19,11 @@ BatchNorm buffers, and :func:`state_from_flax` / :func:`state_to_flax` carry
 a whole model (parameters and running statistics) across.
 
 :func:`quant_from_flax` and :func:`quant_to_flax` carry the calibration
-state across in the same way: the flax ``quant`` collection
-(``{block: {conv: {"act_amax": scalar}}}``) against the port's dict of
-amax by module path (``{"down2.conv0": 0-d f32 tensor}``).
+state across in the same way: the flax ``quant`` collection of any
+quantized graph (the hourglasses', ``{block: {conv: {"act_amax":
+scalar}}}``; the ResNet deploy graph's, ``{"layer2": {"block0": {"conv2":
+...}}, "up0_deconv": ...}``) against the port's dict of amax by module path
+(``{"down2.conv0": 0-d f32 tensor}``, ``{"layer2.block0.conv2": ...}``).
 
 The write side is the inverse: :func:`params_to_flax` maps a state dict
 back onto the flax tree, and :func:`msgpack_serialize` encodes it in the
@@ -178,9 +180,10 @@ def load_flax_checkpoint(path: str) -> Any:
 
 
 def _is_transposed(path: str) -> bool:
-    """Both packages name every ``TorchConvTranspose`` ``deconv``
-    (``_DeconvBlock``, ``_DeconvBNRelu``); no other conv has that name."""
-    return path.rstrip(".").rsplit(".", 1)[-1] == "deconv"
+    """Both packages name every transposed conv ``deconv`` (``_DeconvBlock``,
+    ``_DeconvBNRelu``) or ``up<i>_deconv`` (the ResNet deploy graph's
+    ``QuantConvTranspose``); no other conv's name ends so."""
+    return path.rstrip(".").rsplit(".", 1)[-1].endswith("deconv")
 
 
 def params_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -191,8 +194,10 @@ def params_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     transposed conv's (module ``deconv``) becomes ``[in, out, kh, kw]`` with
     its taps flipped, ``K.flip(0, 1).permute(2, 3, 0, 1)``
     (``layers.TorchConvTranspose``); BatchNorm's ``scale`` becomes
-    ``weight``; ``bias`` leaves keep their name.  Every leaf becomes a
-    contiguous float32 CPU tensor (float16 storage widens).
+    ``weight``; ``bias`` leaves keep their name, and so does the soft-argmax
+    head's ``beta`` (``[n_kp]``, a stage's own in the multistage model).
+    Every leaf becomes a contiguous float32 CPU tensor (float16 storage
+    widens).
     """
     params = tree["params"] if "params" in tree else tree
     state: Dict[str, torch.Tensor] = {}
@@ -208,8 +213,8 @@ def params_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
                 t = torch.from_numpy(arr)
                 t = t.flip(0, 1).permute(2, 3, 0, 1) if _is_transposed(prefix) else t.permute(3, 2, 0, 1)
                 state[prefix + "weight"] = t.contiguous()
-            elif name in ("bias", "scale") and arr.ndim == 1:
-                leaf_name = "weight" if name == "scale" else "bias"
+            elif name in ("bias", "scale", "beta") and arr.ndim == 1:
+                leaf_name = "weight" if name == "scale" else name
                 state[prefix + leaf_name] = torch.from_numpy(np.ascontiguousarray(arr))
             else:
                 raise ValueError(
@@ -233,8 +238,8 @@ def params_to_flax(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
 
     The inverse of :func:`params_from_flax`: ``a.b.weight`` (OIHW) becomes
     ``a/b/kernel`` (HWIO; a transposed conv's ``[in, out, kh, kw]`` flipped
-    back), a 1-D ``weight`` BatchNorm's ``scale``, ``bias`` keeps its name,
-    every leaf a C-order float32 numpy array that owns its memory (a
+    back), a 1-D ``weight`` BatchNorm's ``scale``, ``bias`` and ``beta``
+    keep their names, every leaf a C-order float32 numpy array that owns its memory (a
     snapshot, whatever device ``state`` is on); returns
     ``{"params": {...}}``.  Buffers belong to :func:`batch_stats_to_flax`.
     """
@@ -249,8 +254,8 @@ def params_to_flax(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
             else:
                 t = t.permute(2, 3, 1, 0)
             _set(params, path, "kernel", t.clone(memory_format=torch.contiguous_format).numpy())
-        elif leaf in ("weight", "bias") and t.ndim == 1:
-            _set(params, path, "scale" if leaf == "weight" else "bias", t.numpy().copy())
+        elif leaf in ("weight", "bias", "beta") and t.ndim == 1:
+            _set(params, path, "scale" if leaf == "weight" else leaf, t.numpy().copy())
         else:
             raise ValueError(f"torch leaf {name} {tuple(t.shape)} has no flax counterpart")
     return {"params": params}

@@ -2,7 +2,8 @@
 the port's ``scripts/export_inference.py``.
 
 One ``.pt2`` file: raw uint8 frames in, raw-frame keypoints out, with the
-trained weights (and, with ``--int8-calibration-dir``, vgg-Q's int8 chain)
+trained weights (and, with ``--int8-calibration-dir``, the int8 graph: vgg-Q's
+chain, or the quantized conv graph of the other networks)
 carried in the program, plus a ``<artifact>.meta.json`` sidecar; a
 consumer loads it with ``torch.export.load`` and calls it, with no
 ``dream_tpu_torch`` and no checkpoint (see :mod:`dream_tpu_torch.export`).
@@ -46,7 +47,8 @@ def make_parser() -> argparse.ArgumentParser:
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu: where the artifact is traced and runs.")
     parser.add_argument("--int8-calibration-dir", default=None,
-                        help="NDDS dataset to calibrate int8 quantization on; omit for float "
+                        help="NDDS dataset to calibrate int8 quantization on (vgg-Q's int8 chain, "
+                             "or the quantized conv graph of any other network); omit for float "
                              "inference.")
     parser.add_argument("--int8-calibration-frames", type=int, default=32)
     parser.add_argument("--self-test", action="store_true", default=False,

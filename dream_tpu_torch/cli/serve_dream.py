@@ -61,7 +61,9 @@ def make_parser() -> argparse.ArgumentParser:
     parser.add_argument("--pnp-soft-min-score", type=float, default=0.05)
     parser.add_argument("--int8-calibration-frames", type=int, default=0,
                         help="After this many served frames (run in float and used as calibration "
-                             "data), switch vgg-Q's conv stack to int8 (0 = float serving).")
+                             "data), switch the network to int8: vgg-Q's chain of int8 conv kernels, "
+                             "the quantized conv graph of any other network (DREAM_INT8_IMPL "
+                             "picks; 0 = float serving).")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu.")
     parser.add_argument("-v", "--verbose", action="store_true", default=False)
     return parser

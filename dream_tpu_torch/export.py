@@ -1,12 +1,13 @@
 """Deployable inference artifacts through ``torch.export``.
 
 Port of ``dream_tpu/export.py``.  The whole single-frame pipeline, raw uint8
-frames -> preprocessing and normalization -> the model (float32, bf16 or
-the int8 chain) -> the peak decode -> **raw-frame keypoints**, is one
-``nn.Module`` (:func:`build_raw_inference_fn`).  ``torch.export.export``
-traces it, with the parameters (and the int8 chain's quantized weights and
-scales) carried in the program, and ``torch.export.save`` writes a
-``.pt2`` archive.  A serving process loads it with ``torch.export.load``
+frames -> preprocessing and normalization -> the model (float32, bf16,
+vgg-Q's int8 chain or the quantized conv graph) -> the peak decode ->
+**raw-frame keypoints**, is one ``nn.Module``
+(:func:`build_raw_inference_fn`).  ``torch.export.export`` traces it, with
+the parameters (and the int8 chain's quantized weights and scales, or the
+quantized graph's parameters and amax) carried in the program, and
+``torch.export.save`` writes a ``.pt2`` archive.  A serving process loads it with ``torch.export.load``
 alone: no ``dream_tpu_torch``, no checkpoint (:func:`load_inference`,
 :class:`dream_tpu_torch.serve.ArtifactInference`).
 
@@ -20,7 +21,9 @@ The exported graph differs from live inference in two choices, as
   ``pallas_call`` would pin ``dream_tpu``'s artifact to one Mosaic.  The
   plain versions compute what the kernels compute, bit for bit on the card
   (``chip_smoke.py``), so the artifact's keypoints equal the live ones;
-  the int8 chain's plain route is an exact float64 convolution and slow;
+  the int8 chain's plain route is an exact float64 convolution and slow.
+  The quantized conv graph needs no such choice: its exact int32 route
+  (``torch._int_mm`` on im2col matrices) is what it runs live;
 - keypoints come back in raw-frame pixels: the net-output -> net-input ->
   raw affine is a constant of the raw resolution and is baked in.  The
   no-detection sentinel stays below -999.
@@ -46,11 +49,15 @@ FORMAT = "dream_tpu_torch.export.v1"
 
 
 def serialized_int8_impl(dream_network) -> Optional[str]:
-    """Which int8 graph an artifact of this network carries: ``"xla_chain"``
-    once ``enable_int8_inference`` has run (the port's int8 always runs the
-    vgg-Q chain, the graph ``dream_tpu`` serializes as ``"xla_chain"``), else
-    None (``dream_tpu/export.py:44-63``)."""
-    return "xla_chain" if getattr(dream_network, "int8_chain", None) is not None else None
+    """Which int8 graph an artifact of this network carries, named as
+    ``dream_tpu`` names it (``dream_tpu/export.py:44-63``): ``"xla_chain"``
+    for vgg-Q's chain (live ``"pallas"`` included), ``"quantconv"`` for the
+    quantized conv graph, None before ``enable_int8_inference``."""
+    if getattr(dream_network, "int8_chain", None) is not None:
+        return "xla_chain"
+    if getattr(dream_network, "int8_model", None) is not None:
+        return "quantconv"
+    return None
 
 
 class RawInference(nn.Module):
@@ -60,9 +67,9 @@ class RawInference(nn.Module):
     def __init__(self, dream_network, raw_resolution: Tuple[int, int]):
         super().__init__()
         net = dream_network
-        assert net.network_config["architecture"]["output_heads"] == ["belief_maps"], (
-            "export supports the belief-map head networks (all shipped configs)."
-        )
+        if net.network_config["architecture"]["output_heads"] != ["belief_maps"]:
+            raise NotImplementedError("export supports the belief-map head networks (all shipped "
+                                      "configs), as dream_tpu/export.py:77-79")
         self.net_input_resolution = net.trained_net_input_resolution()
         self.preprocessing = net.image_preprocessing()
         self.normalization = net.image_normalization
@@ -75,10 +82,13 @@ class RawInference(nn.Module):
         self.gap = net.belief_peak_next_best_score
         self.compute_dtype = net.compute_dtype
         # The int8 chain is a snapshot of quantized tensors, which the
-        # trace carries as constants; the float model's parameters are the
-        # program's parameters.
+        # trace carries as constants; the float model's (or the quantized
+        # graph's) parameters are the program's parameters.
         self.int8_chain = net.int8_chain
-        self.model = net.model if self.int8_chain is None else None
+        if self.int8_chain is not None:
+            self.model = None
+        else:
+            self.model = net.int8_model if net.int8_model is not None else net.model
 
     def forward(self, raw_uint8: torch.Tensor):
         net_in = image_proc_ops.preprocess_and_normalize(
@@ -151,7 +161,7 @@ def artifact_metadata(dream_network, raw_resolution: Tuple[int, int], batch_size
             "belief_maps [B, n_kp, h_out, w_out] float32",
             "keypoints_raw [B, n_kp, 2] float32 (sentinel: < -999 = no detection)",
         ],
-        "int8": net.int8_chain is not None,
+        "int8": serialized_int8_impl(net) is not None,
         "int8_impl": serialized_int8_impl(net),
         "architecture": net.network_config["architecture"]["type"],
     }

@@ -5,7 +5,10 @@ down blocks with 2x2 floor max-pools between them, then either the
 upsample decoder (nearest x2 + convs: quarter resolution, vgg-Q; or full
 resolution with ``full_output``) or the transposed-conv decoder (full
 resolution, ``deconv_decoder``: vgg-F), optional additive skip
-connections, and a 64 -> 32 -> n_keypoints belief head.  The multistage
+connections, and a 64 -> 32 -> n_keypoints belief head, optionally
+followed by the soft-argmax head (``internalize_spatial_softmax``: a
+learned or fixed ``beta`` and
+:func:`dream_tpu_torch.ops.spatial_softmax.soft_argmax`).  The multistage
 model chains hourglasses, each later stage taking the image concatenated
 with the previous stage's maps.
 
@@ -16,7 +19,10 @@ return as float32.  Submodules carry the flax tree's names
 ``checkpoint.params_from_flax`` output loads with
 ``load_state_dict(strict=True)``.  Parameters start from flax's
 distributions (``layers.init_module_``), drawn in module order from an
-explicit generator.  The soft-argmax head is not ported yet.
+explicit generator.  ``quant_mode`` sets the mode of every quantizable
+conv (:class:`~dream_tpu_torch.models.quant.QuantConv2d`): ``qat`` for
+quantization-aware training, ``calibrate`` and ``int8`` for post-training
+quantization, None for plain convs (``dream_tpu/models/hourglass.py:36-43``).
 """
 
 from __future__ import annotations
@@ -35,14 +41,16 @@ from dream_tpu_torch.models.layers import (
     upsample_nearest,
 )
 from dream_tpu_torch.models.quant import QuantConv2d
+from dream_tpu_torch.ops.spatial_softmax import soft_argmax
+
+HOURGLASS_QUANT_MODES = (None, "qat", "calibrate", "int8")
 
 
 def _conv3x3(in_channels: int, features: int, dtype: torch.dtype,
              quant_mode: Optional[str]) -> QuantConv2d:
-    """A quantizable 3x3 conv: ``qat`` under QAT, a plain conv otherwise
-    until calibration switches it (``dream_tpu/models/hourglass.py:36-41``)."""
-    return QuantConv2d(in_channels, features, mode="qat" if quant_mode == "qat" else "float",
-                       dtype=dtype)
+    """A quantizable 3x3 conv in ``quant_mode``, a plain conv for None
+    (``dream_tpu/models/hourglass.py:36-41``)."""
+    return QuantConv2d(in_channels, features, mode=quant_mode or "float", dtype=dtype)
 
 
 class _VggDownBlock(nn.Module):
@@ -131,22 +139,26 @@ class DreamHourglass(nn.Module):
 
     Input ``[B, n_image_input_channels, H, W]``; output ``[B, n_keypoints,
     h, w]`` float32 belief maps, ``h = (H//16)*4`` with the upsample decoder
-    and ``(H//16)*16`` with the deconv or full-output one.  ``generator``
-    seeds the initial parameters (the global CPU generator if None);
-    ``dtype`` is the compute dtype.  ``quant_mode`` ``"qat"`` fake-quantizes
-    every quantizable conv but ``head.conv2``
-    (:class:`~dream_tpu_torch.models.quant.QuantConv2d`); None runs them
-    as plain convs.  The transposed convs of the deconv decoder are never
-    quantizable, as in the reference.
+    and ``(H//16)*16`` with the deconv or full-output one; with
+    ``internalize_spatial_softmax``, the list ``[maps, keypoints [B,
+    n_keypoints, 2]]``, the keypoints the soft-argmax of the maps under
+    ``beta`` (a parameter when ``learned_beta``, else fixed at
+    ``initial_beta``; ``dream_tpu/models/hourglass.py:207-219``).
+    ``generator`` seeds the initial parameters (the global CPU generator if
+    None); ``dtype`` is the compute dtype.  ``quant_mode`` is the mode of
+    every quantizable conv, which is every conv but ``head.conv2`` and the
+    deconv decoder's (vgg-F's), which stay float as in the reference.
     """
 
     def __init__(self, n_keypoints: int, n_image_input_channels: int = 3,
                  generator: Optional[torch.Generator] = None, quant_mode: Optional[str] = None,
                  skip_connections: bool = False, deconv_decoder: bool = False,
-                 full_output: bool = False, dtype: torch.dtype = torch.float32):
+                 full_output: bool = False, dtype: torch.dtype = torch.float32,
+                 internalize_spatial_softmax: bool = False, learned_beta: bool = True,
+                 initial_beta: float = 1.0):
         super().__init__()
-        if quant_mode not in (None, "qat"):
-            raise ValueError(f'quant_mode must be None or "qat", got {quant_mode!r}')
+        if quant_mode not in HOURGLASS_QUANT_MODES:
+            raise ValueError(f"quant_mode must be one of {HOURGLASS_QUANT_MODES}, got {quant_mode!r}")
         self.n_keypoints = n_keypoints
         self.n_image_input_channels = n_image_input_channels
         self.skip_connections = skip_connections
@@ -171,13 +183,25 @@ class DreamHourglass(nn.Module):
                 self.upsample2 = _UpsampleBlockFull(64, 64, d, q)
                 self.upsample1 = _UpsampleBlockFull(64, 64, d, q)
         self.head = _BeliefHead(n_keypoints, d, q)
+        self.internalize_spatial_softmax = internalize_spatial_softmax
+        self.initial_beta = float(initial_beta)
+        if internalize_spatial_softmax:
+            beta = torch.full((n_keypoints,), self.initial_beta)
+            if learned_beta:
+                self.beta = nn.Parameter(beta)
+            else:  # flax keeps no leaf for a fixed beta
+                self.register_buffer("beta", beta, persistent=False)
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
-        """Redraw every conv with flax's defaults, in module order."""
+        """Redraw every conv with flax's defaults, in module order; ``beta``
+        back to ``initial_beta``."""
         init_module_(self, generator)
+        if self.internalize_spatial_softmax:
+            with torch.no_grad():
+                self.beta.fill_(self.initial_beta)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor):
         skip = self.skip_connections
         x_0_1 = self.down1(x.to(self.dtype))
         x_0_1_d = max_pool_torch(x_0_1)
@@ -197,7 +221,10 @@ class DreamHourglass(nn.Module):
             y = self.upsample3(y + x_0_3_d if skip else y)
             if self.full_output:
                 y = self.upsample1(self.upsample2(y))
-        return self.head(y)
+        belief = self.head(y)
+        if not self.internalize_spatial_softmax:
+            return belief
+        return [belief, soft_argmax(belief, self.beta)]
 
 
 class DreamHourglassMultiStage(nn.Module):
@@ -207,13 +234,17 @@ class DreamHourglassMultiStage(nn.Module):
     Later stages take ``cat([image, previous maps])`` on the channel axis,
     the maps nearest-x4 upsampled to the input's size unless the decoder is
     deconv or full-output.  Returns the list of the stages' float32 maps,
-    last stage last.
+    last stage last.  With ``internalize_spatial_softmax`` each stage
+    carries its own ``beta`` and computes its keypoints, and the cascade
+    passes its maps alone on, as the reference does (``:263-274``).
     """
 
     def __init__(self, n_keypoints: int, n_stages: int = 2, n_image_input_channels: int = 3,
                  generator: Optional[torch.Generator] = None, quant_mode: Optional[str] = None,
                  skip_connections: bool = False, deconv_decoder: bool = False,
-                 full_output: bool = False, dtype: torch.dtype = torch.float32):
+                 full_output: bool = False, dtype: torch.dtype = torch.float32,
+                 internalize_spatial_softmax: bool = False, learned_beta: bool = True,
+                 initial_beta: float = 1.0):
         super().__init__()
         if not 1 <= n_stages <= 6:
             raise ValueError("DreamHourglassMultiStage supports 1 to 6 stages.")
@@ -226,10 +257,13 @@ class DreamHourglassMultiStage(nn.Module):
                 n_keypoints, channels, generator=generator, quant_mode=quant_mode,
                 skip_connections=skip_connections, deconv_decoder=deconv_decoder,
                 full_output=full_output, dtype=dtype,
+                internalize_spatial_softmax=internalize_spatial_softmax,
+                learned_beta=learned_beta, initial_beta=initial_beta,
             ))
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
-        init_module_(self, generator)
+        for stage in range(self.n_stages):
+            getattr(self, f"stage{stage + 1}").reset_parameters(generator)
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         outputs: List[torch.Tensor] = []
@@ -239,5 +273,6 @@ class DreamHourglassMultiStage(nn.Module):
             else:
                 prev = upsample_nearest(outputs[-1], 4) if self.upsample_previous else outputs[-1]
                 stage_in = torch.cat([x, prev], dim=1)
-            outputs.append(getattr(self, f"stage{stage + 1}")(stage_in))
+            out = getattr(self, f"stage{stage + 1}")(stage_in)
+            outputs.append(out[0] if isinstance(out, list) else out)
         return outputs

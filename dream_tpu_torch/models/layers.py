@@ -208,7 +208,9 @@ def lecun_normal_(weight: torch.Tensor, generator: Optional[torch.Generator] = N
     ``1/sqrt(fan_in)`` after truncation (fan_in = I*kh*kw).  The draws come
     from ``generator`` on its own device (the global CPU generator if None)
     and are copied into ``weight``, so a seed gives the same weights on any
-    device."""
+    device.  A weight on the meta device holds no values: nothing is drawn."""
+    if weight.is_meta:
+        return weight
     fan_in = weight[0].numel()
     std = math.sqrt(1.0 / fan_in) / _TRUNCATED_NORMAL_STDDEV
     draw = torch.empty(weight.shape, dtype=torch.float32, device=_draw_device(generator))
@@ -230,7 +232,9 @@ def init_conv_transpose_(conv: nn.ConvTranspose2d,
     """``TorchConvTranspose``'s init: ``variance_scaling(1/3, "fan_in",
     "uniform")`` on the HWIO kernel, i.e. uniform in ``+-1/sqrt(fan_in)``
     with ``fan_in = kh*kw*in``, and a zero bias.  A ``[in, out, kh, kw]``
-    weight has ``in`` first."""
+    weight has ``in`` first.  Nothing is drawn on the meta device."""
+    if conv.weight.is_meta:
+        return
     fan_in = conv.weight.shape[0] * conv.weight.shape[2] * conv.weight.shape[3]
     limit = math.sqrt(1.0 / fan_in)
     draw = torch.rand(conv.weight.shape, dtype=torch.float32, device=_draw_device(generator),

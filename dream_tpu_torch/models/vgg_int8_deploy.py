@@ -96,8 +96,8 @@ class Int8Chain(NamedTuple):
 
 def supports(model) -> bool:
     """The chain covers the single-stage upsample-decoder hourglass (vgg-Q:
-    quarter-resolution decoder, no skips, no full output, a 3-channel
-    input), as ``vgg_int8_deploy.supports`` (``:130-142``)."""
+    quarter-resolution decoder, no skips, no full output, no soft-argmax
+    head, a 3-channel input), as ``vgg_int8_deploy.supports`` (``:130-142``)."""
     from dream_tpu_torch.models.hourglass import DreamHourglass
 
     return (
@@ -105,6 +105,7 @@ def supports(model) -> bool:
         and not model.deconv_decoder
         and not model.full_output
         and not model.skip_connections
+        and not model.internalize_spatial_softmax
         and model.n_image_input_channels == 3
     )
 

@@ -8,14 +8,18 @@ belief-map criteria (``:70-118``), the multistage loss (``:373-392``), the
 optimizer with its schedule and global-norm clipping (``:394-435``), the
 train steps with BatchNorm's running statistics (``:437-460``), the EMA
 (``:512-532``) and the evaluation loss; quantization-aware training of the
-vgg hourglasses (``quant_mode: qat``) and int8 inference of vgg-Q
-(``enable_int8_inference``, ``:796-969``); the decode's peak scores
+vgg hourglasses (``quant_mode: qat``) and int8 inference of every
+architecture (``enable_int8_inference``, ``:796-969``: vgg-Q's chain of
+int8 conv kernels, or the quantized conv graph of any hourglass and of the
+ResNets' BatchNorm-folded deploy graph); the soft-argmax head
+(``spatial_softmax``, ``:201-210``), which decodes its own keypoints;
+the decode's peak scores
 for the robust PnP modes (``inference_detailed``, ``:984-1028``); and
 warm starts from a pretrained encoder (``init_encoder_from``,
 ``:1116-1145``) and, across packages, from an optax optimizer state
 (``optimizer_state``, ``load_optimizer_state``).  The model computes in the
 config's ``compute_dtype``, float32 or bfloat16, with float32 parameters,
-as the JAX package does.  The soft-argmax head is not ported yet.
+as the JAX package does.
 Peak decoding runs in the CUDA score kernel, the augmentation's warp in
 the CUDA warp kernel and the int8 chain's convs in the CUDA int8 conv
 kernel for CUDA tensors, and in their plain torch versions for CPU
@@ -44,7 +48,13 @@ from dream_tpu_torch.checkpoint import (
     state_from_flax,
     state_to_flax,
 )
-from dream_tpu_torch.models import DreamHourglass, DreamHourglassMultiStage, ResnetSimple
+from dream_tpu_torch.models import (
+    DreamHourglass,
+    DreamHourglassMultiStage,
+    ResnetSimple,
+    ResnetSimpleDeploy,
+    fold_batchnorm_resnet,
+)
 from dream_tpu_torch.models import quant as quant_ops
 from dream_tpu_torch.models import vgg_int8_deploy
 from dream_tpu_torch.models.pretrain import graft_encoder_params
@@ -57,6 +67,19 @@ from dream_tpu_torch.utils.config import load_yaml, save_yaml
 KNOWN_OPTIMIZERS = ["adam", "sgd"]  # reference dream/network.py:23-26
 KNOWN_ARCHITECTURES = ["vgg", "resnet"]
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# The int8 graphs DREAM_INT8_IMPL names (dream_tpu/network.py:857-906):
+# "xla_chain" and "pallas" both name vgg-Q's chain of int8 conv kernels,
+# "quantconv" the quantized conv graph of any architecture.
+INT8_IMPLS = ("auto", "xla_chain", "quantconv", "pallas")
+
+
+def int8_impl_from_env() -> str:
+    """``DREAM_INT8_IMPL`` (default ``auto``), validated as ``dream_tpu``
+    does."""
+    impl = os.environ.get("DREAM_INT8_IMPL", "auto")
+    if impl not in INT8_IMPLS:
+        raise ValueError(f"DREAM_INT8_IMPL={impl!r}: expected one of {', '.join(map(repr, INT8_IMPLS))}.")
+    return impl
 
 
 def dtype_name(dtype: torch.dtype) -> str:
@@ -184,10 +207,17 @@ class DreamNetwork:
             raise ValueError(f'Image preprocessing type "{self.image_preprocessing()}" is not recognized.')
         if arch["input_heads"][0] != "image_rgb":
             raise ValueError('First input head must be "image_rgb".')
-        if "spatial_softmax" in arch or arch["output_heads"] != ["belief_maps"]:
+        # The soft-argmax head: the model emits keypoints beside its maps
+        # (dream_tpu/network.py:201-210).
+        self.soft_argmax_head = "spatial_softmax" in arch
+        expected_heads = ["belief_maps", "keypoints"] if self.soft_argmax_head else ["belief_maps"]
+        if arch["output_heads"] != expected_heads:
+            raise ValueError(f"output_heads must be {expected_heads} for this architecture, "
+                             f"got {arch['output_heads']}")
+        if self.soft_argmax_head and (arch["type"] != "vgg" or "n_stages" in arch):
             raise NotImplementedError(
-                "the port has no soft-argmax head yet; "
-                f"got output_heads={arch['output_heads']}"
+                "the soft-argmax head is built for the single-stage vgg hourglass; the multistage "
+                "model passes its stages' maps alone on, so no keypoints reach its output"
             )
         # QAT fake-quantizes the training graph; calibrate/int8 are driven by
         # enable_int8_inference (dream_tpu/network.py:190-200).
@@ -215,6 +245,10 @@ class DreamNetwork:
                 vgg_kwargs["full_output"] = True
             if "skip_connections" in arch:
                 vgg_kwargs["skip_connections"] = arch["skip_connections"]
+            if self.soft_argmax_head:
+                vgg_kwargs.update(internalize_spatial_softmax=True,
+                                  learned_beta=arch["spatial_softmax"]["learned_beta"],
+                                  initial_beta=arch["spatial_softmax"]["initial_beta"])
             common = dict(generator=generator, quant_mode=self.quant_mode,
                           dtype=self.compute_dtype, **vgg_kwargs)
             if "n_stages" in arch:
@@ -247,7 +281,11 @@ class DreamNetwork:
         self._batch_processor: Optional[Callable] = None
         self.ema_decay: Optional[float] = None
         self.ema_params: Optional[Dict[str, torch.Tensor]] = None
+        # The int8 graph enable_int8_inference selected: vgg-Q's chain or a
+        # quantized copy of the model (its deploy graph for a ResNet).
+        self.int8_impl: Optional[str] = None
         self.int8_chain: Optional[vgg_int8_deploy.Int8Chain] = None
+        self.int8_model: Optional[torch.nn.Module] = None
 
         cfg = network_config["training"]["config"]
         out_res = list(self.net_output_resolution_from_input_resolution(
@@ -450,7 +488,12 @@ class DreamNetwork:
     def _forward_loss(self, net_input: torch.Tensor, target: torch.Tensor,
                       variables: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
         """The criterion over the stacked stage outputs against the broadcast
-        target, accumulated in float32 (``dream_tpu/network.py:373-392``)."""
+        target, accumulated in float32 (``dream_tpu/network.py:373-392``).
+        The soft-argmax head is not trained, as in ``dream_tpu``
+        (``:380-382``)."""
+        if self.soft_argmax_head:
+            raise NotImplementedError("training and the loss take the belief-map head alone "
+                                      '(output_heads ["belief_maps"])')
         stacked = torch.stack(self._stage_outputs(net_input, variables)).to(torch.float32)
         target = target.to(self.device, torch.float32)
         return self.criterion(stacked, target.expand_as(stacked))
@@ -523,46 +566,89 @@ class DreamNetwork:
 
     def enable_int8_inference(self, calibration_net_inputs: Sequence[torch.Tensor]
                               ) -> Dict[str, torch.Tensor]:
-        """Post-training int8 quantization of vgg-Q's conv stack.
+        """Post-training int8 quantization of the conv stack.
 
         Calibrates the activation amax of every quantizable conv over
         ``calibration_net_inputs`` (normalized NHWC ``[B, H, W, 3]``
-        batches) with the float model, as the JAX package's ``calibrate``
+        batches) with the float graph, as the JAX package's ``calibrate``
         pass does, then quantizes the current parameters and points
-        :meth:`inference` at the int8 chain
-        (:mod:`dream_tpu_torch.models.vgg_int8_deploy`), whose 19 chained
-        convs run in the CUDA int8 conv kernel on the card.  The chain is a
-        snapshot: later training does not change it.  Training and
-        checkpoints stay float.  Returns the amax by module path.
+        :meth:`inference` at the int8 graph ``DREAM_INT8_IMPL`` selects
+        (:func:`int8_impl_from_env`, ``dream_tpu/network.py:857-906``):
 
-        Calibration runs on a copy of the model, so the live model never
-        enters ``calibrate`` mode: inference on other threads (the server's
-        handlers) goes on in float meanwhile and adds nothing to the amax.
+        - ``auto`` takes vgg-Q's chain where it applies
+          (``vgg_int8_deploy.supports``), else ``quantconv``;
+        - ``xla_chain`` and ``pallas`` name vgg-Q's chain
+          (:mod:`dream_tpu_torch.models.vgg_int8_deploy`), whose 19 chained
+          convs run in the CUDA int8 conv kernel on the card; asked for on a
+          network the chain cannot take, they raise (``dream_tpu`` warns
+          and falls back to ``quantconv``);
+        - ``quantconv`` is the quantized conv graph
+          (:class:`~dream_tpu_torch.models.quant.QuantConv2d` in ``int8``
+          mode, the exact int32 route of :mod:`dream_tpu_torch.ops.conv_int32`):
+          a quantized copy of the hourglass (every conv but ``head.conv2``
+          and vgg-F's deconv decoder), or of a ResNet's BatchNorm-folded
+          deploy graph (:mod:`dream_tpu_torch.models.resnet_deploy`).
+
+        The int8 graph is a snapshot: later training does not change it.
+        Training and checkpoints stay float.  Calibration runs on a copy of
+        the model, so the live model never enters ``calibrate`` mode:
+        inference on other threads (the server's handlers) goes on in float
+        meanwhile and adds nothing to the amax.  Returns the amax by module
+        path.
         """
-        if not vgg_int8_deploy.supports(self.model):
-            raise NotImplementedError(
-                "int8 inference is ported for vgg-Q only; vgg-F, the other hourglasses and the "
-                "ResNets need QuantConv's int8 mode, not ported yet"
+        impl = int8_impl_from_env()
+        chain_ok = self.architecture_type == "vgg" and vgg_int8_deploy.supports(self.model)
+        if impl == "auto":
+            impl = "xla_chain" if chain_ok else "quantconv"
+        elif impl in ("xla_chain", "pallas") and not chain_ok:
+            raise ValueError(
+                f"DREAM_INT8_IMPL={impl!r} names vgg-Q's int8 chain, which this network cannot "
+                "take (it covers the single-stage quarter-resolution vgg hourglass); use "
+                "'quantconv' or 'auto'"
             )
         batches = (torch.as_tensor(b).to(self.device, torch.float32).permute(0, 3, 1, 2)
                    for b in calibration_net_inputs)
-        qvars = quant_ops.calibrate(copy.deepcopy(self.model), batches)
-        self.int8_chain = vgg_int8_deploy.quantize_chain(self.model.state_dict(), qvars)
+        if self.architecture_type == "resnet":
+            graph = ResnetSimpleDeploy(self.n_keypoints, full=self.model.full,
+                                       layers=self.model.layers, dtype=self.compute_dtype)
+            graph.load_state_dict(fold_batchnorm_resnet(self.model.state_dict()), strict=True)
+            graph = graph.to(self.device)
+        else:
+            graph = copy.deepcopy(self.model)
+        qvars = quant_ops.calibrate(graph, batches)
+        # One attribute at a time, the new graph last: a reader on another
+        # thread sees the old graph or the new one.
+        if impl in ("xla_chain", "pallas"):
+            chain = vgg_int8_deploy.quantize_chain(self.model.state_dict(), qvars)
+            self.int8_model = None
+            self.int8_chain = chain
+        else:
+            self.int8_chain = None
+            self.int8_model = quant_ops.set_int8(graph, qvars)
+        self.int8_impl = impl
         return qvars
 
     # --- inference (reference dream/network.py:503-590) ---
 
-    def _belief_maps(self, network_input: torch.Tensor) -> torch.Tensor:
-        chain = self.int8_chain  # one read: another thread may set it meanwhile
+    def _outputs(self, network_input: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """NHWC net input -> (float32 belief maps NCHW of the last stage, the
+        soft-argmax head's keypoints or None), through the int8 graph once
+        :meth:`enable_int8_inference` has run."""
+        chain, int8_model = self.int8_chain, self.int8_model  # another thread may set them
+        x = network_input.to(self.device, torch.float32)
         if chain is not None:
-            belief = vgg_int8_deploy.run_int8_chain(
-                chain, network_input.to(self.device, torch.float32), self.compute_dtype
-            ).permute(0, 3, 1, 2).contiguous()
-        else:
-            self.model.eval()
-            belief = self._stage_outputs(network_input)[-1]
+            belief = vgg_int8_deploy.run_int8_chain(chain, x, self.compute_dtype)
+            return belief.permute(0, 3, 1, 2).contiguous(), None
+        model = int8_model if int8_model is not None else self.model.eval()
+        out = model(x.permute(0, 3, 1, 2))
+        if self.soft_argmax_head:
+            return out[0].to(torch.float32), out[1]
+        belief = out[-1] if isinstance(out, list) else out
         # The decode (the score kernel) takes float32 maps.
-        return belief.to(torch.float32)
+        return belief.to(torch.float32), None
+
+    def _belief_maps(self, network_input: torch.Tensor) -> torch.Tensor:
+        return self._outputs(network_input)[0]
 
     def _keypoints(self, belief: torch.Tensor):
         return bm_ops.keypoints_from_belief_maps(
@@ -578,8 +664,12 @@ class DreamNetwork:
         -> ``(belief_maps [B, n_kp, h', w'], keypoints [B, n_kp, 2])`` in
         the net-output frame, the last stage's maps in float32; the sentinel
         marks no detection.  BatchNorm runs on its running statistics.  Runs
-        the int8 chain once :meth:`enable_int8_inference` has been called."""
-        belief = self._belief_maps(network_input)
+        the int8 graph once :meth:`enable_int8_inference` has been called.
+        The soft-argmax head's keypoints are its own, with no peak decode
+        (``dream_tpu/network.py:724-733``)."""
+        belief, keypoints = self._outputs(network_input)
+        if keypoints is not None:
+            return belief, keypoints
         return belief, self._keypoints(belief)[0]
 
     @torch.no_grad()
@@ -587,8 +677,12 @@ class DreamNetwork:
         """:meth:`inference` plus each map's best peak score ``[B, n_kp]``
         and that peak's net-output coordinates ``[B, n_kp, 2]``, kept even
         where the score-gap disambiguation rejects it to the sentinel: the
-        inputs of confidence-weighted and soft-detection PnP."""
-        belief = self._belief_maps(network_input)
+        inputs of confidence-weighted and soft-detection PnP.  The
+        soft-argmax head's scores are all ones and its best keypoints its
+        keypoints (``dream_tpu/network.py:990-998``)."""
+        belief, keypoints = self._outputs(network_input)
+        if keypoints is not None:
+            return belief, keypoints, torch.ones(keypoints.shape[:-1], device=keypoints.device), keypoints
         keypoints, peaks = self._keypoints(belief)
         return belief, keypoints, peaks["scores"][..., 0], peaks["coords"][..., 0, :]
 

@@ -49,9 +49,9 @@ import threading
 from typing import NamedTuple, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from dream_tpu_torch.ops import cuda_build
+from dream_tpu_torch.ops.conv_int32 import conv2d_int32_plain
 
 
 def _check(x_q: torch.Tensor, w_q: torch.Tensor, k: torch.Tensor, b: torch.Tensor) -> None:
@@ -83,9 +83,8 @@ def ohwi(w_hwio: torch.Tensor) -> torch.Tensor:
 def conv3x3_int32_plain(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     """int8 NHWC ``[B, H, W, Ci]`` * int8 OHWI ``[Co, 3, 3, Ci]`` -> the
     exact int32 same-pad accumulator, NHWC ``[B, H, W, Co]``."""
-    acc = F.conv2d(x_q.permute(0, 3, 1, 2).to(torch.float64),
-                   w_q.permute(0, 3, 1, 2).to(torch.float64), padding=1)
-    return acc.round().to(torch.int32).permute(0, 2, 3, 1)
+    return conv2d_int32_plain(x_q.permute(0, 3, 1, 2), w_q.permute(0, 3, 1, 2),
+                              padding=1).permute(0, 2, 3, 1)
 
 
 def requantize(acc: torch.Tensor, k: torch.Tensor, b: torch.Tensor, relu: bool) -> torch.Tensor:

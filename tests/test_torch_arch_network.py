@@ -263,13 +263,17 @@ def test_output_resolution_and_offset_match_jax(arch, out, offset):
             ref.net_resolutions_from_image_raw_resolution(raw)
 
 
-def test_unported_options_are_refused():
+def test_unported_options_are_refused(monkeypatch):
+    """QAT of a ResNet (as dream_tpu), and vgg-Q's int8 chain asked for by
+    name on a ResNet, which the chain cannot take (dream_tpu falls back to
+    its quantconv graph; the port raises)."""
     cfg = small_config("resnet-H")
     cfg["architecture"]["quant_mode"] = "qat"
     with pytest.raises(ValueError, match="QAT applies to vgg"):
         DreamNetwork(cfg, device="cpu")
     _, net = both_networks("resnet-H")
-    with pytest.raises(NotImplementedError, match="vgg-Q only"):
+    monkeypatch.setenv("DREAM_INT8_IMPL", "pallas")
+    with pytest.raises(ValueError, match="cannot take"):
         net.enable_int8_inference([torch.zeros(1, NET_IN, NET_IN, 3)])
 
 

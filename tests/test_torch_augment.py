@@ -48,6 +48,17 @@ H, W = 64, 128
 FULL_CFG = jax_augment.AugmentConfig(p_shift_scale_rotate=1.0)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Small tensors, where torch's idle intra-op threads spin for nothing
+    and slow the other test workers: two threads take less CPU time than
+    the machine's count."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _images(seed, b, h=H, w=W, c=3):
     return (np.random.RandomState(seed).rand(b, h, w, c) * 255).astype(np.float32)
 

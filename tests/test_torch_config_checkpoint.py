@@ -32,6 +32,17 @@ YAML_FILES = sorted(
 VGGQ_R5 = os.path.join(ROOT, "trained_models/results_r5/vggq/dream_vgg_q_r5.msgpack")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Small tensors, where torch's idle intra-op threads spin for nothing
+    and slow the other test workers: two threads take less CPU time than
+    the machine's count."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 def test_yaml_file_list_is_complete():
     # arch_configs (4) + manip_configs (3) + checkpoint sidecars (7).
     assert len(YAML_FILES) == 14, YAML_FILES

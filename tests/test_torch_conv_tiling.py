@@ -39,6 +39,17 @@ ODD_SHAPES = [  # (B, H, W, Ci, Co): H, W not multiples of 5 or 25; Ci of each k
 ]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Small tensors, where torch's idle intra-op threads spin for nothing
+    and slow the other test workers: two threads take less CPU time than
+    the machine's count."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _coverage(b, h, w, ci, co, sms=H100_SMS):
     plan = conv_int8.tile_plan(b, h, w, ci, co, sms)
     n_tiles_n = -(-co // plan.bn)

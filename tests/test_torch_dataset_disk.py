@@ -27,6 +27,17 @@ NAMES = ["panda_link0", "panda_link2", "panda_link3", "panda_link4", "panda_link
 NORM = {"mean": [0.5] * 3, "stdev": [0.5] * 3}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Small tensors, where torch's idle intra-op threads spin for nothing
+    and slow the other test workers: two threads take less CPU time than
+    the machine's count."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def datasets(tmp_path_factory):
     path = str(tmp_path_factory.mktemp("ndds") / "jax_panda")

@@ -49,7 +49,10 @@
   ``enable_int8_inference`` fed the same calibration batches gives the
   same amax (rtol 1e-5: twenty-odd float32 convs deep) and the port's
   int8 belief maps agree with JAX's ``vgg_q_int8_infer`` on those amax
-  under the same 0.02/0.05 gate.
+  under the same 0.02/0.05 gate.  Under ``DREAM_INT8_IMPL=quantconv`` the
+  port's quantized conv graph meets the same amax and gate against
+  dream_tpu's default CPU int8, its quantconv graph, unpinned.  JAX's
+  network and its calibration are built once for the module.
 """
 
 import copy
@@ -82,6 +85,7 @@ from dream_tpu_torch.models.quant import (
     calibrate,
     quantize_activations,
     quantize_weights,
+    set_int8,
 )
 from dream_tpu_torch.models.vgg_int8_deploy import CHAIN, vgg_q_int8_infer
 from dream_tpu_torch.network import DreamNetwork, weighted_mse_loss
@@ -337,15 +341,33 @@ def _small_qat_config():
     return cfg
 
 
-def test_enable_int8_inference_through_evaluate_frames_matches_jax():
+@pytest.fixture(scope="module")
+def qat_networks():
+    """The QAT config at 64x64, JAX's network with random parameters, the
+    port's calibration batches (the first 4 of 5 frames, to reach 3) and
+    JAX's ``enable_int8_inference`` over them: its default on the CPU, the
+    quantconv graph (flax's eager ``init`` there takes ~12 s, so once)."""
     cfg = _small_qat_config()
-    torch_net = DreamNetwork(copy.deepcopy(cfg), device="cpu")
-    assert torch_net.quant_mode == "qat"
     jax_net = jax_network.create_network_from_config_data(copy.deepcopy(cfg))
     jax_net.variables = {"params": _random_params(jax_net.model, (1, 64, 64, 3), seed=7)}
+    frames = generate_synthetic_frames(5, RAW, [kp["name"] for kp in cfg["manipulator"]["keypoints"]],
+                                       seed=5)
+    process = make_batch_processor(RAW, NET_IN, NET_OUT, "shrink-and-crop",
+                                   cfg["architecture"]["image_normalization"],
+                                   include_belief_maps=False)
+    batches = collect_calibration_batches(frames["images"], process, 3, batch_size=2)
+    ref_qvars = jax_net.enable_int8_inference([b.numpy() for b in batches])
+    return {"cfg": cfg, "jax_net": jax_net, "frames": frames, "batches": batches,
+            "ref_qvars": ref_qvars}
+
+
+def test_enable_int8_inference_through_evaluate_frames_matches_jax(qat_networks, monkeypatch):
+    monkeypatch.delenv("DREAM_INT8_IMPL", raising=False)
+    cfg, jax_net, frames = qat_networks["cfg"], qat_networks["jax_net"], qat_networks["frames"]
+    torch_net = DreamNetwork(copy.deepcopy(cfg), device="cpu")
+    assert torch_net.quant_mode == "qat"
     torch_net.model.load_state_dict(params_from_flax(jax_net.variables), strict=True)
 
-    frames = generate_synthetic_frames(5, RAW, torch_net.keypoint_names, seed=5)
     gt = {"projections": frames["projections"], "positions": frames["positions"]}
     before = conv_int8.conv3x3_int8_kernel.launches
     result = evaluate_frames(torch_net, frames["images"], gt, frames["camera_K"], batch_size=2,
@@ -355,12 +377,8 @@ def test_enable_int8_inference_through_evaluate_frames_matches_jax():
     # The QAT model itself is untouched: its convs went back to "qat".
     assert all(m.mode == "qat" for m in torch_net.model.modules() if hasattr(m, "mode"))
 
-    process = make_batch_processor(RAW, NET_IN, NET_OUT, "shrink-and-crop",
-                                   cfg["architecture"]["image_normalization"],
-                                   include_belief_maps=False)
-    batches = collect_calibration_batches(frames["images"], process, 3, batch_size=2)
+    batches, ref_qvars = qat_networks["batches"], qat_networks["ref_qvars"]
     assert [b.shape[0] for b in batches] == [2, 2]  # the first 4 frames, to reach 3
-    ref_qvars = jax_net.enable_int8_inference([b.numpy() for b in batches])
     ref = quant_from_flax(jax.tree_util.tree_map(np.asarray, ref_qvars))
     qvars = torch_net.enable_int8_inference(batches)
     for name in ref:
@@ -377,3 +395,30 @@ def test_enable_int8_inference_through_evaluate_frames_matches_jax():
         for p in torch_net.model.parameters():
             p.add_(1.0)
     assert torch.equal(torch_net.inference(x)[0], belief)
+
+
+def test_quantconv_matches_dream_tpu_default_int8(qat_networks, monkeypatch):
+    """vgg-Q's quantconv graph (``DREAM_INT8_IMPL=quantconv``) against
+    dream_tpu's default int8 on the CPU, unpinned, which is its quantconv
+    graph (``dream_tpu/network.py:876-887``), on the same batches: amax to
+    rtol 1e-5, and on JAX's amax the maps under the 0.02/0.05 gate."""
+    cfg, jax_net = qat_networks["cfg"], qat_networks["jax_net"]
+    batches, ref_qvars = qat_networks["batches"], qat_networks["ref_qvars"]
+    assert jax_net._int8_impl == "quantconv"
+    monkeypatch.setenv("DREAM_INT8_IMPL", "quantconv")
+    torch_net = DreamNetwork(copy.deepcopy(cfg), device="cpu")
+    torch_net.model.load_state_dict(params_from_flax(jax_net.variables), strict=True)
+    qvars = torch_net.enable_int8_inference(batches)
+    assert torch_net.int8_impl == "quantconv" and torch_net.int8_chain is None
+    ref = quant_from_flax(jax.tree_util.tree_map(np.asarray, ref_qvars))
+    assert set(qvars) == set(ref)
+    for name in ref:
+        np.testing.assert_allclose(float(qvars[name]), float(ref[name]), rtol=1e-5, err_msg=name)
+    set_int8(torch_net.int8_model, ref)
+    x = batches[0]
+    belief, keypoints = torch_net.inference(x)
+    assert keypoints.shape == (2, 7, 2)
+    want, _ = jax_net.inference(jnp.asarray(x.numpy()))
+    _assert_int8_gate(belief.numpy(), np.asarray(want))
+    # The live model kept its QAT convs; the int8 graph is a copy.
+    assert all(m.mode == "qat" for m in torch_net.model.modules() if hasattr(m, "mode"))

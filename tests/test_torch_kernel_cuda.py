@@ -18,6 +18,17 @@ from dream_tpu_torch.ops import conv_int8, score_kernel, warp
 from dream_tpu_torch.ops.belief_maps import create_belief_maps, peaks_from_belief_maps
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Small tensors, where torch's idle intra-op threads spin for nothing
+    and slow the other test workers: two threads take less CPU time than
+    the machine's count."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _maps(rng, n, h, w):
     maps = np.zeros((n, h, w), np.float32)
     for _ in range(3):

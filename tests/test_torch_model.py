@@ -33,6 +33,17 @@ CONFIG = os.path.join(ROOT, "trained_models/results_r5/vggq/dream_vgg_q_r5.yaml"
 PARAMS = os.path.join(ROOT, "trained_models/results_r5/vggq/dream_vgg_q_r5.msgpack")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Small tensors, where torch's idle intra-op threads spin for nothing
+    and slow the other test workers: two threads take less CPU time than
+    the machine's count."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 def jax_network():
     """dream_tpu's float32 vgg-Q network with the committed weights, cast to
     float32 as ``load_network_params`` casts them, without that method's
@@ -108,16 +119,26 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
     [{"spatial_softmax": {"learned_beta": True, "initial_beta": 1.0}}, "int8 of vgg-F",
      {"quant_mode": "int8"}],
 )
-def test_unported_architectures_are_refused(override):
+def test_unported_architectures_are_refused(override, monkeypatch):
+    """What the port refuses: ``quant_mode: int8`` in a config (as
+    dream_tpu); a ``spatial_softmax`` block without the ``keypoints`` output
+    head (dream_tpu asserts it); vgg-Q's int8 chain asked for by name on
+    vgg-F, which the chain cannot take (dream_tpu falls back to its
+    quantconv graph; the port raises, and takes vgg-F's int8 through the
+    quantconv graph when not asked for the chain)."""
     cfg = load_yaml(CONFIG)
-    if override == "int8 of vgg-F":  # int8 is ported for vgg-Q only
+    if override == "int8 of vgg-F":
         cfg["architecture"]["deconv_decoder"] = True
         cfg["training"]["config"]["net_input_resolution"] = [64, 64]
         del cfg["training"]["config"]["net_output_resolution"]
         net = DreamNetwork(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="vgg-Q only"):
+        monkeypatch.setenv("DREAM_INT8_IMPL", "xla_chain")
+        with pytest.raises(ValueError, match="cannot take"):
             net.enable_int8_inference([torch.zeros(1, 64, 64, 3)])
+        monkeypatch.delenv("DREAM_INT8_IMPL")
+        net.enable_int8_inference([torch.zeros(1, 64, 64, 3)])
+        assert net.int8_impl == "quantconv"
         return
     cfg["architecture"].update(override)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError if "spatial_softmax" in override else NotImplementedError):
         DreamNetwork(cfg, device="cpu")

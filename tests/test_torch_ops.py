@@ -30,6 +30,17 @@ from dream_tpu_torch.utils import resolutions as tres
 MODES = ["none", "resize", "shrink", "shrink-and-crop"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Small tensors, where torch's idle intra-op threads spin for nothing
+    and slow the other test workers: two threads take less CPU time than
+    the machine's count."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("raw", [(640, 480), (480, 640), (400, 400), (1280, 720)])
 def test_resolution_algebra_matches(raw):
     ref = (400, 400)

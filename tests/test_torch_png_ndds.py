@@ -20,6 +20,7 @@ import zlib
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from dream_tpu.data.synthetic import generate_synthetic_ndds as jax_generate_synthetic_ndds
@@ -32,6 +33,17 @@ from dream_tpu_torch.utils.png import read_png, write_png
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RES = (160, 120)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Small tensors, where torch's idle intra-op threads spin for nothing
+    and slow the other test workers: two threads take less CPU time than
+    the machine's count."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _pil_rgb(path):

@@ -42,6 +42,17 @@ from dream_tpu_torch.ops import geometric_vision as tgv
 K = np.array([[614.4, 0.0, 320.0], [0.0, 614.4, 240.0], [0.0, 0.0, 1.0]], np.float32)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Small tensors, where torch's idle intra-op threads spin for nothing
+    and slow the other test workers: two threads take less CPU time than
+    the machine's count."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _random_rotations(rng, n):
     axes = rng.randn(n, 3)
     axes /= np.linalg.norm(axes, axis=1, keepdims=True)
