@@ -211,13 +211,31 @@ since the script started, `elapsed_s`):
    over each graph's convs at B=16 and its peak memory, phase 26's CLI
    frames/s against phase 18's, and the soft-argmax decode at B=16.
 
+30. the visualization layer on the phase-17 holdout (vgg-Q r5 in its
+   sidecar's bf16, batch 16): (a) whether cv2, PIL, matplotlib, webcolors
+   and ffmpeg are there (nothing is installed; none of the four libraries
+   may enter sys.modules through the port); (b) the evaluation CLI's
+   default command line, mosaics on: the three 3,216x480 mosaics,
+   keypoints.csv byte-equal to phase 18's, the score kernel once a batch,
+   red at the centre of each detection no ground-truth dot covers, the
+   mosaics' seconds; (c) the single-image CLI on frame 000000: its five
+   PNGs at their sizes, one score launch, its detections against phase
+   18's row (found state equal, median within 0.05 px: batch 1 against 16
+   in bf16); (d) the video CLI on frames 0-15, all four types: 16 frames
+   each, one score launch, an .mp4 exactly when ffmpeg is there, frames/s
+   by type; again with --int8-calibration-frames 16: 19 conv launches;
+   (e) one more request to phase 21's server, then its five debug streams
+   as 200 image/png at their sizes, an unknown stream 404, and the artifact
+   server's net_input_image 404; (f) a HEAVY dump of 4 frames (12 PNGs) and
+   an INTERACTIVE one (and index.html); (g) host ms a call of the drawing.
+
 Then a line listing the kernels with their measurements (each row's ms and
 library_ms time the same work; the score and warp rows' ms is device time
 from a CUDA graph, and the warp's library_ms too; the score row adds its
 device time at phase 15's shapes; redesigned_in names the design the kernel
 now has; launches are counted on the CLI runs of phases 18-19, the
-counted serving runs of phases 21-22 and, for the score kernel, the int8
-runs of phases 26-27), and as the last line
+counted serving runs of phases 21-22, the runs of phase 30 and, for the
+score kernel, the int8 runs of phases 26-27), and as the last line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
 before that line.  Without CUDA the script exits non-zero at once.
 """
@@ -235,6 +253,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -1420,10 +1439,14 @@ def serving_phases(kernels_of_port, reset_counts, smi, work):
         "artifact_ms_a_frame_b1": artifact_ms, "live_preprocess_and_model_ms_b1": live_model_ms,
     })
     progress("serving_timings", **out["timings"])
-    for h in (httpd, httpd8, httpd_a):
-        stop_http(h)
-    del net, r4, server, server8, server_a
+    stop_http(httpd8)
+    del r4, server8
     torch.cuda.empty_cache()
+    # Phase 30 reads the debug streams of the live bf16 server (after phase
+    # 21's frames) and of the artifact server, then stops both.
+    out["live"] = {"server": server, "httpd": httpd, "url": url, "artifact_httpd": httpd_a,
+                   "artifact_url": url_a, "camera_info": camera_info, "pngs": pngs,
+                   "positions": positions, "first": first}
     return out
 
 
@@ -1733,6 +1756,235 @@ def zoo_phases(kernels_of_port, reset_counts, smi, work, gen):
     del nets
     torch.cuda.empty_cache()
     return score_launches
+
+
+VIZ_LIBRARIES = ("cv2", "PIL", "matplotlib", "webcolors")
+
+
+def http_get_raw(url, path):
+    """``(status, content type, body)`` of a GET, errors included."""
+    try:
+        with urllib.request.urlopen(url + path, timeout=300) as resp:
+            return resp.status, resp.headers["Content-Type"], resp.read()
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.headers["Content-Type"], exc.read()
+
+
+def ms_a_call(fn, reps=5):
+    """Host ms a call of ``fn`` after one warm-up call, the least of ``reps``."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return min(times)
+
+
+def visualization_phase(kernels_of_port, reset_counts, smi, work, live):
+    """Phase 30: the visualization layer at full width on the phase-17
+    holdout: the evaluation CLI's default command line (with its mosaics),
+    the single-image and video CLIs, the server's five debug streams, the
+    dataset's debug dumps, and host timings of the drawing.  Returns the
+    phase's kernel launches."""
+    import importlib.util
+    import shutil
+
+    from dream_tpu_torch import analysis
+    from dream_tpu_torch import visualize as viz
+    from dream_tpu_torch.cli import network_inference as single_cli
+    from dream_tpu_torch.cli import network_inference_dataset as eval_cli
+    from dream_tpu_torch.cli import visualize_network_inference as video_cli
+    from dream_tpu_torch.data.dataset import ManipulatorNDDSDataset
+    from dream_tpu_torch.utils.config import load_yaml
+    from dream_tpu_torch.utils.png import decode_png, read_png
+
+    def launches():
+        return {k: v.launches for k, v in kernels_of_port.items()}
+
+    hold, tmp = work["hold"], work["tmp_dir"].name
+    loaded_before = {m for m in VIZ_LIBRARIES if m in sys.modules}
+    probe = {m: importlib.util.find_spec(m) is not None for m in VIZ_LIBRARIES}
+    probe["ffmpeg"] = shutil.which("ffmpeg")
+    progress("visualization_probe", installed=probe, already_imported=sorted(loaded_before))
+    counts = {k: 0 for k in kernels_of_port}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] += v
+
+    # (b) The evaluation CLI's default command line: mosaics on.
+    mosaic_s = []
+    write_mosaics = analysis._write_sample_mosaics
+
+    def timed_mosaics(*args):
+        t0 = time.perf_counter()
+        write_mosaics(*args)
+        mosaic_s.append(time.perf_counter() - t0)
+
+    analysis._write_sample_mosaics = timed_mosaics
+    out_dir = os.path.join(tmp, "eval_vggq_mosaics")
+    reset_counts()
+    try:
+        quiet(eval_cli.network_inference_dataset, eval_cli.make_parser().parse_args(
+            ["-i", CHECKPOINT, "-d", hold, "-o", out_dir, "-b", "16", "-w", "8"]))
+    finally:
+        analysis._write_sample_mosaics = write_mosaics
+    eval_counts = launches()
+    add(eval_counts)
+    failures = []
+    with open(os.path.join(out_dir, "keypoints.csv"), "rb") as f, \
+            open(os.path.join(work["vggq_dir"], "keypoints.csv"), "rb") as g:
+        if f.read() != g.read():
+            failures.append("keypoints.csv differs from phase 18's")
+    if eval_counts["score_kernel"] != HOLDOUT_FRAMES // 16:
+        failures.append(f"launches {eval_counts}: not the score kernel once a batch")
+    detected = csv_detections(os.path.join(out_dir, "keypoints.csv"))
+    with open(os.path.join(out_dir, "keypoints.csv"), newline="") as f:
+        rows = list(csv.reader(f))[1:]
+    gt = np.array([r[15:29] for r in rows], float).reshape(-1, 7, 2)
+    ranked = sorted(range(len(rows)), key=lambda i: analysis.sample_l2_metric(
+        detected[i], gt[i], (640, 480)))
+    n = len(ranked)
+    middle = int(np.floor(n / 2.0 - 5 / 2.0))  # dream_tpu/analysis.py:854-861, 5 a group
+    groups = {"best": ranked[:5], "medians": ranked[middle : middle + 5], "worst": ranked[n - 5 :]}
+    centres_red = 0
+    mosaic_shapes = {}
+    for group, members in groups.items():
+        path = os.path.join(out_dir, f"{group}_samples.png")
+        if not os.path.exists(path):
+            failures.append(f"{group}_samples.png was not written")
+            continue
+        mosaic = read_png(path)
+        mosaic_shapes[group] = list(mosaic.shape)
+        if mosaic.shape != (480, 5 * 640 + 4 * 4, 3):
+            failures.append(f"{group}_samples.png is {mosaic.shape}")
+            continue
+        for tile, i in enumerate(members):
+            for x, y in detected[i]:
+                # A red (6 px) detection no green (4 px) ground truth covers.
+                if x < -999.0 or not (0 <= x < 640 and 0 <= y < 480):
+                    continue
+                if np.min(np.linalg.norm(gt[i] - (x, y), axis=1)) <= 4.0:
+                    continue
+                pixel = mosaic[int(y), tile * 644 + int(x)]
+                if tuple(pixel) != (255, 0, 0):
+                    failures.append(f"{group} tile {tile}: pixel {tuple(pixel)} at detection ({x}, {y})")
+                centres_red += 1
+    progress("visualization_evaluation_cli", mosaics=mosaic_shapes, mosaic_s=mosaic_s,
+             keypoints_csv="byte-equal to phase 18's" if not failures else "see failures",
+             launches=eval_counts, red_detection_centres_checked=centres_red, card=smi)
+    if failures or not mosaic_s or centres_red == 0:
+        raise AssertionError("phase 30 (b): " + "; ".join(failures or ["no mosaic timed or no centre checked"]))
+
+    # (c) The single-image CLI on holdout frame 000000.
+    single_dir = os.path.join(tmp, "single_image")
+    frame = os.path.join(hold, "000000.rgb.png")
+    reset_counts()
+    detection, _ = quiet(single_cli.network_inference, single_cli.make_parser().parse_args(
+        ["-i", CHECKPOINT, "-m", frame, "-o", single_dir]))
+    single_counts = launches()
+    add(single_counts)
+    sizes = {"keypoints_raw.png": (480, 640), "keypoints_net_input.png": (400, 400),
+             "belief_maps.png": (100, 7 * 100 + 6 * 10), "belief_blends.png": (400, 7 * 400),
+             "keypoints_vs_gt.png": (480, 640)}
+    written = {f: list(read_png(os.path.join(single_dir, f)).shape) for f in sorted(os.listdir(single_dir))}
+    vs_cli = detection_agreement(detection["detected_keypoints"][None], detected[:1])
+    progress("visualization_single_image_cli", files=written, launches=single_counts,
+             detections_vs_phase_18=vs_cli)
+    if (written != {f: list(hw) + [3] for f, hw in sizes.items()} or single_counts["score_kernel"] != 1
+            or vs_cli["same_found_state"] != 7 or vs_cli["median_px"] > 0.05):
+        raise AssertionError("phase 30 (c): see the line above")
+
+    # (d) The video CLI on frames 0-15, all four types; then int8.
+    video_dir = os.path.join(tmp, "video")
+    reset_counts()
+    summary, _ = quiet(video_cli.visualize_network_inference, video_cli.make_parser().parse_args(
+        ["-i", CHECKPOINT, "-d", hold, "-o", video_dir, "-s", "0", "-e", "16", "-b", "16", "-t"]
+        + video_cli.ALL_VIZ_TYPES))
+    video_counts = launches()
+    add(video_counts)
+    frames = {vt: len(os.listdir(os.path.join(video_dir, vt + "_frames"))) for vt in video_cli.ALL_VIZ_TYPES}
+    mp4 = {vt: os.path.exists(os.path.join(video_dir, vt + ".mp4")) for vt in video_cli.ALL_VIZ_TYPES}
+    int8_dir = os.path.join(tmp, "video_int8")
+    reset_counts()
+    int8_summary, _ = quiet(video_cli.visualize_network_inference, video_cli.make_parser().parse_args(
+        ["-i", CHECKPOINT, "-d", hold, "-o", int8_dir, "-s", "0", "-e", "16", "-b", "16",
+         "--int8-calibration-frames", "16"]))
+    int8_counts = launches()
+    add(int8_counts)
+    progress("visualization_video_cli", frames=frames, mp4_written=mp4, ffmpeg=probe["ffmpeg"],
+             frames_per_s={vt: summary["frames"] / s for vt, s in summary["seconds_by_type"].items()},
+             launches=video_counts, int8={"frames": int8_summary["frames"], "launches": int8_counts})
+    if (set(frames.values()) != {16} or video_counts["score_kernel"] != 1
+            or any(v != bool(probe["ffmpeg"]) for v in mp4.values())
+            or int8_counts["conv_int8_kernel"] != 19 or int8_counts["score_kernel"] != 1):
+        raise AssertionError("phase 30 (d): see the line above")
+
+    # (e) The server's debug streams, after phase 21's frames and one more.
+    def post_frame(url, i):
+        http_post(url, "/keypoint_positions", json.dumps(live["positions"][i].tolist()).encode())
+        return http_post(url, "/image", live["pngs"][i])
+
+    reset_counts()
+    posted = post_frame(live["url"], live["first"])
+    serve_counts = launches()
+    add(serve_counts)
+    want = {"net_input_image": (400, 400), "keypoint_overlay": (480, 640), "belief_maps": (100, 700),
+            "keypoint_belief_overlay": (480, 640), "keypoint_frame_overlay": (480, 640)}
+    streams = {}
+    for stream, hw in want.items():
+        status, kind, body = http_get_raw(live["url"], f"/debug/{stream}.png")
+        shape = list(decode_png(body).shape) if status == 200 else None
+        streams[stream] = {"status": status, "type": kind, "shape": shape}
+        if status != 200 or kind != "image/png" or shape != list(hw) + [3]:
+            failures.append(f"{stream}: {streams[stream]}")
+    unknown = http_get_raw(live["url"], "/debug/nonsense.png")[0]
+    post_frame(live["artifact_url"], live["first"])
+    artifact_net_input = http_get_raw(live["artifact_url"], "/debug/net_input_image.png")[0]
+    progress("visualization_debug_streams", posted=posted, launches=serve_counts, streams=streams,
+             unknown_stream=unknown, artifact_net_input_image=artifact_net_input)
+    for key in ("httpd", "artifact_httpd"):
+        stop_http(live[key])
+    if failures or unknown != 404 or artifact_net_input != 404 or serve_counts["score_kernel"] != 1 \
+            or not posted["pnp"]:
+        raise AssertionError("phase 30 (e): " + "; ".join(failures or ["see the line above"]))
+
+    # (f) The dataset's HEAVY and INTERACTIVE dumps of 4 frames.
+    names = [kp["name"] for kp in load_yaml(PANDA)["manipulator"]["keypoints"]]
+    dumps = {}
+    for level in (2, 3):
+        dump_dir = os.path.join(tmp, f"dump_{level}")
+        ds = ManipulatorNDDSDataset(hold, "panda", names, (400, 400), (100, 100), debug_mode=level,
+                                    debug_dir=dump_dir, n_decode_threads=8)
+        t0 = time.perf_counter()
+        ds.host_batch([0, 1, 2, 3])
+        dumps[level] = {"files": len(os.listdir(dump_dir)), "seconds": time.perf_counter() - t0,
+                        "index_html": os.path.exists(os.path.join(dump_dir, "index.html"))}
+    progress("visualization_dataset_dumps", heavy=dumps[2], interactive=dumps[3])
+    if dumps[2]["files"] != 12 or dumps[2]["index_html"] or dumps[3]["files"] != 13 \
+            or not dumps[3]["index_html"]:
+        raise AssertionError("phase 30 (f): see the line above")
+
+    # (g) Host timings of the drawing, on the card machine's CPU.
+    raw = read_png(frame)
+    maps = np.random.RandomState(30).uniform(0, 1, (7, 100, 100)).astype(np.float32)
+    tiles = [raw] * 5
+    timings = {
+        "overlay_7_points_640x480_ms": ms_a_call(lambda: viz.overlay_points_on_image(raw, detected[0])),
+        "overlay_7_points_with_names_ms": ms_a_call(
+            lambda: viz.overlay_points_on_image(raw, detected[0], names)),
+        "colormap_7x100x100_ms": ms_a_call(lambda: viz.images_from_belief_maps(maps)),
+        "blend_100_to_640x480_ms": ms_a_call(lambda: viz.blend_belief_overlay(raw, maps[0])),
+        "mosaic_5x640x480_ms": ms_a_call(lambda: viz.mosaic_images(tiles, rows=1, cols=5,
+                                                                   inner_padding_px=4)),
+        "host": "the card machine's CPU",
+    }
+    leaked = sorted({m for m in VIZ_LIBRARIES if m in sys.modules} - loaded_before)
+    progress("visualization_timings", card=smi, **timings, libraries_imported_by_the_port=leaked)
+    if leaked:
+        raise AssertionError(f"the port imported {leaked}")
+    return counts
 
 
 def main():
@@ -2308,8 +2560,13 @@ def main():
     # and DOPE.
     zoo_score_launches = zoo_phases(kernels_of_port, reset_counts, smi, workflow["work"],
                                     torch.Generator(device="cuda").manual_seed(25))
+
+    # 30. The visualization layer and what waits on it.
+    viz_launches = visualization_phase(kernels_of_port, reset_counts, smi, workflow["work"],
+                                       serving["live"])
     workflow["work"]["tmp_dir"].cleanup()
-    launched = {k: workflow["launches"][k] + serving["launches"].get(k, 0) for k in workflow["launches"]}
+    launched = {k: workflow["launches"][k] + serving["launches"].get(k, 0) + viz_launches[k]
+                for k in workflow["launches"]}
     launched["score_kernel"] += zoo_score_launches
     score_err = max(score_err, serving["max_abs_err"]["score_kernel"])
     conv_cases["serving chain links at B=1"] = serving["max_abs_err"]["conv_int8_kernel"]

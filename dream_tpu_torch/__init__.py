@@ -21,12 +21,31 @@ with the same module names so each counterpart is easy to find:
 - ``dream_tpu_torch.data``      -- synthetic frames in memory and on disk,
                                    NDDS datasets and loaders, the batch
                                    processor and augmentation
+- ``dream_tpu_torch.serve``     -- the HTTP pose server and its debug
+                                   streams; ``export``: torch.export artifacts
+- ``dream_tpu_torch.visualize`` -- keypoint overlays, belief-map colormaps,
+                                   mosaics, the pose triad (OpenCV's, Pillow's
+                                   and matplotlib's algorithms carried in
+                                   ``utils/raster.py``, ``utils/resample.py``
+                                   and ``utils/colormaps.py``)
 - ``dream_tpu_torch.cli``       -- the command-line entry points: datasets,
-                                   training, dataset evaluation
+                                   training, dataset evaluation, single-image
+                                   and video inference, serving, export
 
-It imports torch, numpy, scipy and the standard library only, never jax or
-dream_tpu.  Importing it builds nothing: each CUDA kernel is compiled with
-nvcc on its first launch.
+It imports torch, numpy, scipy and the standard library only, never jax,
+dream_tpu, cv2, PIL or matplotlib.  Importing it builds nothing: each CUDA
+kernel is compiled with nvcc on its first launch.  The top-level modules
+load on first access (``dream_tpu_torch.visualize``), as in ``dream_tpu``.
 """
 
+import importlib
+
 __version__ = "0.1.0"
+
+_LAZY_MODULES = ("analysis", "export", "network", "serve", "visualize")
+
+
+def __getattr__(name):
+    if name in _LAZY_MODULES:
+        return importlib.import_module(f"dream_tpu_torch.{name}")
+    raise AttributeError(f"module 'dream_tpu_torch' has no attribute '{name}'")

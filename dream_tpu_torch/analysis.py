@@ -16,9 +16,11 @@ map, batched PnP over all frames in any of its modes (plain,
 score-weighted, soft detections, leave-one-out rejection, RANSAC), ADD
 under both rotation conventions, and the three report files
 (``keypoints.csv``, ``pnp_results.csv`` and ``analysis_results.txt``, in
-the JAX package's layout, ``:212-259`` and ``:620-739``).
+the JAX package's layout, ``:212-259`` and ``:620-739``), and by default
+the best, median and worst samples' mosaics (``:838-876``).
 :func:`evaluate_frames` does the plain-PnP evaluation over frames already
-in memory.
+in memory; :func:`sample_range_analysis` (``:740-835``) writes one
+sample's belief-map mosaics and net-input overlay.
 """
 
 from __future__ import annotations
@@ -312,15 +314,11 @@ def analyze_ndds_dataset(
     peak above ``pnp_soft_min_score`` goes to PnP, even where the score-gap
     test rejected it from the keypoint metrics; PCK is unaffected).  The
     network is ``dream_network`` or built from the two paths on
-    ``device``.  The sample mosaics (``visualize_belief_maps``) need the
-    visualization module, which the port has not yet, and raise.  Returns
-    ``(keypoint metrics, PnP metrics or None)``.
+    ``device``.  With ``visualize_belief_maps`` it writes
+    ``best_samples.png``, ``medians_samples.png`` and ``worst_samples.png``
+    (:func:`_write_sample_mosaics`, ranked by each frame's mean L2 error).
+    Returns ``(keypoint metrics, PnP metrics or None)``.
     """
-    if visualize_belief_maps:
-        raise NotImplementedError(
-            "sample mosaics need the visualization module, which the port has not yet "
-            "(ROADMAP.md section 1); pass visualize_belief_maps=False (--no-visualization)"
-        )
     if not (isinstance(batch_size, int) and batch_size > 0):
         raise ValueError("batch_size must be a positive integer")
     for path in (network_params_path, network_config_path, dataset_dir):
@@ -385,6 +383,9 @@ def analyze_ndds_dataset(
     detected_raw = detected_t.cpu().numpy()
     gt_raw = np.concatenate(gt_raw)
     n_samples, n_kp = detected_raw.shape[0], detected_raw.shape[1]
+    sample_results = [(i, {"name": names[i], "detected_raw": detected_raw[i]},
+                       sample_l2_metric(detected_raw[i], gt_raw[i], raw_res))
+                      for i in range(n_samples)]
     kp_metrics = keypoint_metrics(detected_raw.reshape(n_samples * n_kp, 2),
                                   gt_raw.reshape(n_samples * n_kp, 2), raw_res)
     write_keypoint_csv(os.path.join(output_dir, "keypoints.csv"), names, detected_raw, gt_raw)
@@ -419,7 +420,110 @@ def analyze_ndds_dataset(
     write_analysis_report(os.path.join(output_dir, "analysis_results.txt"), dataset_dir,
                           network_config_path, n_samples, kp_metrics, pnp_results, pnp_analysis,
                           pnp_alt=pnp_results_alt)
+
+    if visualize_belief_maps:
+        # File-system and memory failures must not fail the analysis; a
+        # fault in the drawing code must surface.
+        try:
+            _write_sample_mosaics(output_dir, dataset, sample_results)
+        except (OSError, MemoryError) as exc:
+            print(f"Sample mosaic generation skipped: {exc}")
     return kp_metrics, pnp_results
+
+
+def sample_l2_metric(detected_raw: np.ndarray, gt_raw: np.ndarray, raw_res) -> float:
+    """A frame's mean L2 error (px) over its detected keypoints whose ground
+    truth is in the frame, 999.999 when there is none (reference
+    dream/analysis.py:243-265, ``dream_tpu/analysis.py:414-434``)."""
+    keep = (
+        ~((detected_raw[:, 0] < -999.0) & (detected_raw[:, 1] < -999.0))
+        & (gt_raw[:, 0] >= 0.0) & (gt_raw[:, 0] <= raw_res[0])
+        & (gt_raw[:, 1] >= 0.0) & (gt_raw[:, 1] <= raw_res[1])
+    )
+    if not np.any(keep):
+        return 999.999
+    return float(np.mean(np.linalg.norm(detected_raw[keep] - gt_raw[keep], axis=1)))
+
+
+def _write_sample_mosaics(output_dir: str, dataset, sample_results) -> None:
+    """``best_samples.png``, ``medians_samples.png`` and ``worst_samples.png``
+    (``dream_tpu/analysis.py:838-876``): a row of raw frames a group, the
+    detections in red (6 px) under the ground truth in green (4 px).
+    ``sample_results`` holds ``(index, {"name", "detected_raw"}, metric)``
+    a frame; the groups are the lowest, the middle and the highest metrics
+    (5 frames each from 50 frames on, a tenth below that, 1 below 10)."""
+    from dream_tpu_torch import visualize as viz
+    from dream_tpu_torch.utils.png import write_png
+
+    n_samples = len(sample_results)
+    sorted_results = sorted(sample_results, key=lambda x: x[2])
+    n_outliers = min(5, n_samples // 10) if n_samples >= 10 else 1
+    middle = int(np.floor(n_samples / 2.0 - n_outliers / 2.0))
+    groups = {
+        "best": sorted_results[:n_outliers],
+        "medians": sorted_results[middle : middle + n_outliers],
+        "worst": sorted_results[n_samples - n_outliers :],
+    }
+    for group_name, entries in groups.items():
+        images = []
+        for idx, info, _ in entries:
+            img = viz.overlay_points_on_image(dataset.load_images([idx])[0], info["detected_raw"],
+                                              annotation_color_dot="red")
+            img = viz.overlay_points_on_image(img, dataset.kp_projs_raw[idx],
+                                              annotation_color_dot="green", point_diameter=4.0)
+            images.append(img)
+        write_png(os.path.join(output_dir, f"{group_name}_samples.png"),
+                  viz.mosaic_images(images, rows=1, cols=len(images), inner_padding_px=4))
+
+
+def sample_range_analysis(raw_images, sample_kp_proj_detected_netout, sample_kp_proj_gt_netout,
+                          sample_belief_maps, sample_names, sample_ranks, image_prefix: str,
+                          output_dir: str, keypoint_names, images_net_input) -> None:
+    """Per-sample visual diagnostics over a rank range
+    (``dream_tpu/analysis.py:740-835``, reference dream/analysis.py:997-1189).
+
+    For each sample it writes ``{prefix}_belief_maps_rank_{rank}_id_{name}.png``
+    (the belief maps in two rows), ``..._belief_maps_kp_...`` (each map with
+    the ground truth in green and the detection in red, 4 px) and
+    ``..._net_input_kp_...`` (both sets over the net input).
+    ``images_net_input`` is a list of uint8 images or a ``[B, h, w, 3]``
+    float array in [0, 1] (truncated to uint8); ``raw_images`` is not read,
+    as in ``dream_tpu``."""
+    from dream_tpu_torch import visualize as viz
+    from dream_tpu_torch.utils import resample
+    from dream_tpu_torch.utils.png import write_png
+
+    n_keypoints = len(keypoint_names)
+    n_cols = int(np.ceil(n_keypoints / 2.0))
+    if not isinstance(images_net_input, (list, tuple)):
+        arr = np.asarray(images_net_input)
+        images_net_input = [np.uint8(np.clip(a * 255.0, 0, 255)) for a in arr]
+    first = np.asarray(sample_belief_maps[0])
+    net_output_res = (first.shape[2], first.shape[1])
+
+    def path(kind, rank, name):
+        return os.path.join(output_dir, f"{image_prefix}_{kind}_rank_{rank}_id_{name}.png")
+
+    for kp_det, kp_gt, belief_maps, name, rank, net_in_img in zip(
+            sample_kp_proj_detected_netout, sample_kp_proj_gt_netout, sample_belief_maps,
+            sample_names, sample_ranks, images_net_input):
+        kp_det, kp_gt = np.asarray(kp_det), np.asarray(kp_gt)
+        map_images = viz.images_from_belief_maps(np.asarray(belief_maps), normalization_method=6)
+        write_png(path("belief_maps", rank, name),
+                  viz.mosaic_images(map_images, rows=2, cols=n_cols, inner_padding_px=10))
+        overlaid = [viz.overlay_points_on_image(map_images[k], [kp_gt[k], kp_det[k]],
+                                                annotation_color_dot=["green", "red"], point_diameter=4)
+                    for k in range(n_keypoints)]
+        write_png(path("belief_maps_kp", rank, name),
+                  viz.mosaic_images(overlaid, rows=2, cols=n_cols, inner_padding_px=10))
+        net_in_img = resample.as_image(net_in_img)
+        to_netin = coord_ops.affine_netin_from_netout(
+            net_output_res, (net_in_img.shape[1], net_in_img.shape[0]))
+        overlay = viz.overlay_points_on_image(net_in_img, to_netin.apply_numpy(kp_gt),
+                                              annotation_color_dot="green", point_diameter=4)
+        overlay = viz.overlay_points_on_image(overlay, to_netin.apply_numpy(kp_det),
+                                              annotation_color_dot="red", point_diameter=4)
+        write_png(path("net_input_kp", rank, name), overlay)
 
 
 def write_analysis_report(path: str, dataset_dir: str, network_config_path: str, n_samples: int,

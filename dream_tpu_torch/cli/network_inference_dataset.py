@@ -2,14 +2,15 @@
 
 The port's ``scripts/network_inference_dataset.py``, a thin wrapper over
 :func:`dream_tpu_torch.analysis.analyze_ndds_dataset`: ``keypoints.csv``,
-``pnp_results.csv`` and ``analysis_results.txt`` in ``-o``.  Sample mosaics
-need the visualization module, which the port has not yet, so the CLI
-refuses to run without ``--no-visualization``.
+``pnp_results.csv`` and ``analysis_results.txt`` in ``-o``, and the best,
+median and worst samples' mosaics (``best_samples.png``,
+``medians_samples.png``, ``worst_samples.png``) unless
+``--no-visualization``.
 
 Example (the r5 flagship on its holdout):
   python3 -m dream_tpu_torch.cli.network_inference_dataset \\
       -i trained_models/results_r5/vggq/dream_vgg_q_r5.msgpack -d _scratch/hold64 \\
-      -o _scratch/eval_vggq_r5 --no-visualization -f
+      -o _scratch/eval_vggq_r5 -f
 """
 
 from __future__ import annotations
@@ -23,11 +24,6 @@ from dream_tpu_torch.utils.config import load_yaml
 
 
 def network_inference_dataset(args: argparse.Namespace):
-    if not args.no_visualization:
-        raise NotImplementedError(
-            "sample mosaics need the visualization module, which the port has not yet "
-            "(ROADMAP.md section 1, item 'visualize.py'); pass --no-visualization"
-        )
     network_config_path = args.network_config or os.path.splitext(args.input_params_path)[0] + ".yaml"
     config = load_yaml(network_config_path)
     if args.compute_dtype:
@@ -41,7 +37,7 @@ def network_inference_dataset(args: argparse.Namespace):
         network_config_path,
         args.dataset_dir,
         args.output_dir,
-        visualize_belief_maps=False,
+        visualize_belief_maps=not args.no_visualization,
         pnp_analysis=not args.no_pnp,
         force_overwrite=args.force_overwrite,
         image_preprocessing_override=args.image_preproc_override,

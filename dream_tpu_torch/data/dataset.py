@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import concurrent.futures
 import enum
+import html
+import os
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -32,9 +34,14 @@ from dream_tpu_torch.utils.resolutions import KNOWN_IMAGE_PREPROC_TYPES
 
 
 class ManipulatorNDDSDatasetDebugLevels(enum.IntEnum):
-    """``dream_tpu``'s debug levels.  NONE and LIGHT behave alike here; the
-    HEAVY and INTERACTIVE dumps draw overlays through the visualization
-    module, which the port has not yet, and the dataset refuses them."""
+    """``dream_tpu``'s debug levels (reference dream/datasets.py:22-30).
+
+    NONE and LIGHT behave alike.  HEAVY dumps each sample's ground-truth
+    overlays (raw frame and net input, with the keypoint names) and its
+    belief-map mosaic as PNGs into ``debug_dir`` when its batch is loaded;
+    INTERACTIVE also rewrites ``index.html``, a contact sheet of every dump
+    so far, in place of the reference's on-screen check, which needs a
+    display (dream/datasets.py:228-271)."""
 
     NONE = 0
     LIGHT = 1
@@ -66,12 +73,8 @@ class ManipulatorNDDSDataset:
         include_belief_maps: bool = False,
         debug_mode: int = ManipulatorNDDSDatasetDebugLevels.NONE,
         n_decode_threads: int = 8,
+        debug_dir: str = "dataset_debug",
     ):
-        if debug_mode >= ManipulatorNDDSDatasetDebugLevels.HEAVY:
-            raise NotImplementedError(
-                "HEAVY and INTERACTIVE debug dumps need the visualization module, which the "
-                "port has not yet (ROADMAP.md section 1)"
-            )
         if include_belief_maps and not include_ground_truth:
             raise ValueError('If "include_belief_maps" is True, "include_ground_truth" must also be True.')
         if image_preprocessing not in KNOWN_IMAGE_PREPROC_TYPES:
@@ -89,6 +92,8 @@ class ManipulatorNDDSDataset:
         self.include_ground_truth = include_ground_truth
         self.include_belief_maps = include_belief_maps
         self.debug_mode = debug_mode
+        self.debug_dir = debug_dir
+        self._debug_dumped: set = set()
         self._n_decode_threads = n_decode_threads
 
         n, n_kp = len(self.ndds_dataset_data), len(self.keypoint_names)
@@ -125,7 +130,73 @@ class ManipulatorNDDSDataset:
         if self.include_ground_truth:
             batch["keypoint_projections_raw"] = self.kp_projs_raw[indices]
             batch["keypoint_positions"] = self.kp_positions[indices]
+        if self.debug_mode >= ManipulatorNDDSDatasetDebugLevels.HEAVY:
+            self.dump_debug(indices, images=batch["image_rgb_raw"])
         return batch
+
+    def dump_debug(self, indices: Sequence[int], images: Optional[np.ndarray] = None,
+                   output_dir: Optional[str] = None) -> List[str]:
+        """HEAVY-level dumps (``dream_tpu/data/dataset.py:176-269``): for each
+        sample not dumped before, ``{name}_gt_overlay_raw.png`` and
+        ``{name}_gt_overlay_net_input.png`` (the ground-truth keypoints and
+        their names over the raw frame and over the preprocessed frame,
+        truncated to uint8) and ``{name}_gt_belief_maps.png`` (its belief
+        maps in a row), in ``output_dir`` or ``debug_dir``; at INTERACTIVE
+        level ``index.html`` too.  ``images`` are the samples' raw frames
+        when the caller has them.  Returns the files written."""
+        from dream_tpu_torch import visualize as viz
+        from dream_tpu_torch.utils.png import write_png
+
+        out_dir = output_dir or self.debug_dir
+        os.makedirs(out_dir, exist_ok=True)
+        to_netin = coord_ops.affine_netin_from_raw(
+            self.image_raw_resolution, self.network_input_resolution, self.image_preprocessing)
+        to_netout = coord_ops.affine_netout_from_netin(
+            self.network_input_resolution, self.network_output_resolution)
+        written: List[str] = []
+        for j, idx in enumerate(indices):
+            idx = int(idx)
+            if idx in self._debug_dumped:
+                continue
+            self._debug_dumped.add(idx)
+            name = self.ndds_dataset_data[idx]["name"]
+            raw = images[j] if images is not None else self.load_images([idx])[0]
+            kp_raw = self.kp_projs_raw[idx]
+            # In float32, as dream_tpu maps them.
+            kp_netin = to_netin(torch.from_numpy(kp_raw))
+            kp_netout = to_netout(kp_netin)
+            kp_netin = kp_netin.numpy()
+            net_in = preprocess_images(torch.from_numpy(raw[None].astype(np.float32)),
+                                       self.network_input_resolution,
+                                       self.image_preprocessing)[0].numpy().astype(np.uint8)
+            maps = create_belief_maps(kp_netout[None], self.network_output_resolution)[0]
+            for kind, image in (
+                    ("gt_overlay_raw", viz.overlay_points_on_image(raw, kp_raw, self.keypoint_names)),
+                    ("gt_overlay_net_input",
+                     viz.overlay_points_on_image(net_in, kp_netin, self.keypoint_names)),
+                    ("gt_belief_maps", viz.mosaic_images(viz.images_from_belief_maps(maps), rows=1,
+                                                         cols=len(self.keypoint_names)))):
+                path = os.path.join(out_dir, f"{name}_{kind}.png")
+                write_png(path, image)
+                written.append(path)
+        if written and self.debug_mode >= ManipulatorNDDSDatasetDebugLevels.INTERACTIVE:
+            written.append(self._write_debug_contact_sheet(out_dir))
+        return written
+
+    def _write_debug_contact_sheet(self, out_dir: str) -> str:
+        """``index.html``: every dump so far, a row a sample (INTERACTIVE)."""
+        rows = []
+        for idx in sorted(self._debug_dumped):
+            name = html.escape(self.ndds_dataset_data[idx]["name"])
+            cells = "".join(
+                f'<td><img src="{name}_{kind}.png" style="max-width:320px"><br>{kind}</td>'
+                for kind in ("gt_overlay_raw", "gt_overlay_net_input", "gt_belief_maps"))
+            rows.append(f"<tr><th>{name}</th>{cells}</tr>")
+        path = os.path.join(out_dir, "index.html")
+        with open(path, "w") as f:
+            f.write("<html><body><h1>dream_tpu dataset GT debug</h1>"
+                    f"<table border=1>{''.join(rows)}</table></body></html>")
+        return path
 
     def sample_names(self, indices: Sequence[int]) -> List[str]:
         return [self.ndds_dataset_data[int(i)]["name"] for i in indices]

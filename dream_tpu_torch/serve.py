@@ -24,13 +24,13 @@ its JSON:
 - :func:`make_http_server`: the endpoints on ``ThreadingHTTPServer``, bound
   to loopback by default.  ``POST /image`` decodes PNG with
   :func:`dream_tpu_torch.utils.png.decode_png`; any other body (a JPEG)
-  gets a 400 JSON error naming the format.
+  gets a 400 JSON error naming the format.  ``GET /debug/<stream>.png``
+  renders one of the five debug streams of the latest frame
+  (:meth:`DreamInferenceServer.render_debug`, through
+  :mod:`dream_tpu_torch.visualize`) as ``image/png``; an unknown stream,
+  or one with nothing to show yet, is a 404.
 - :class:`ArtifactInference`: serves a ``torch.export`` artifact of
   :mod:`dream_tpu_torch.export` in place of the network.
-
-The debug streams draw through the visualization module, which the port
-has not yet: a known stream gets a JSON 501 that says so, an unknown one a
-404, as in ``dream_tpu``.
 
 Threads: each request runs on a thread of its own, so what a request needs
 (``torch.no_grad``, the current stream) it sets itself
@@ -52,8 +52,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from dream_tpu_torch import visualize as viz
 from dream_tpu_torch.ops import geometric_vision as gv
-from dream_tpu_torch.utils.png import decode_png
+from dream_tpu_torch.utils.png import decode_png, encode_png
 
 # The debug renders of dream_tpu/serve.py:366-416.
 DEBUG_STREAMS = (
@@ -178,6 +179,7 @@ class DreamInferenceServer:
         self.pnp_solution_found = False
         self.latest_pose = None  # dict, robot_from_cam
         self.latest_detection = None
+        self.latest_image = None
         self.frames_processed = 0
         self._lock = threading.Lock()
 
@@ -246,6 +248,7 @@ class DreamInferenceServer:
 
         with self._lock:
             self.latest_detection = detection
+            self.latest_image = np.asarray(image)
             self.frames_processed += 1
             frame = self.frames_processed  # read under the lock: other frames count too
             keypoint_positions = self.keypoint_positions
@@ -354,16 +357,47 @@ class DreamInferenceServer:
             }
 
     def render_debug(self, stream: str):
-        """The debug renders (reference topics :143-157) draw through the
-        visualization module, which the port has not yet: a known stream
-        raises ``NotImplementedError`` naming it, an unknown one returns
-        None, as in ``dream_tpu``."""
-        if stream in DEBUG_STREAMS:
-            raise NotImplementedError(
-                f"debug stream {stream!r} draws through visualize.py, which the port has not "
-                "ported yet (ROADMAP.md section 1)"
-            )
-        return None
+        """One debug render of the latest frame as a uint8 image, or None
+        (reference topics :143-157, ``dream_tpu/serve.py:366-416``), made on
+        demand as the reference publishes only to subscribers (:237-252):
+
+        - ``net_input_image``: the net input, its normalization undone (None
+          when serving an artifact, whose net input stays inside its graph);
+        - ``keypoint_overlay``: the detections and their names on the frame;
+        - ``belief_maps``: the belief maps in a row;
+        - ``keypoint_belief_overlay``: the maps' maximum blended over the
+          frame, with the detections;
+        - ``keypoint_frame_overlay``: the robot base's triad through the
+          latest pose (None before a pose and camera intrinsics).
+
+        None before the first frame and for an unknown stream."""
+        with self._lock:
+            detection = self.latest_detection
+            image = self.latest_image
+            pose = self.latest_pose
+            camera_K = self.camera_K
+        if detection is None or stream not in DEBUG_STREAMS:
+            return None
+        if stream == "net_input_image":
+            if detection.get("image_rgb_net_input") is None:
+                return None
+            return viz.image_from_tensor(detection["image_rgb_net_input"],
+                                         self.network.image_normalization)
+        if stream == "keypoint_overlay":
+            return viz.overlay_points_on_image(image, detection["detected_keypoints"],
+                                               self.network.friendly_keypoint_names)
+        belief_maps = torch.as_tensor(detection["belief_maps"]).float().cpu().numpy()
+        if stream == "belief_maps":
+            return viz.mosaic_images(viz.images_from_belief_maps(belief_maps), rows=1,
+                                     cols=self.network.n_keypoints)
+        if stream == "keypoint_belief_overlay":
+            blend = viz.blend_belief_overlay(image, np.max(belief_maps, axis=0))
+            return viz.overlay_points_on_image(blend, detection["detected_keypoints"])
+        if pose is None or camera_K is None:
+            return None
+        cam_from_robot = pose["camera_from_robot"]
+        return viz.overlay_pose_triad(image, camera_K, cam_from_robot["translation"],
+                                      cam_from_robot["quaternion_xyzw"])
 
 
 # ---------------------------------------------------------------------------
@@ -395,6 +429,14 @@ def make_http_server(server: DreamInferenceServer, host: str = "127.0.0.1", port
             self.end_headers()
             self.wfile.write(body)
 
+        def _send_png(self, image):
+            body = encode_png(image)
+            self.send_response(200)
+            self.send_header("Content-Type", "image/png")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
         def _read_body(self):
             length = int(self.headers.get("Content-Length", 0))
             return self.rfile.read(length)
@@ -406,13 +448,11 @@ def make_http_server(server: DreamInferenceServer, host: str = "127.0.0.1", port
                 self._send_json(server.get_status())
             elif self.path.startswith("/debug/"):
                 stream = self.path[len("/debug/"):].removesuffix(".png")
-                try:
-                    img = server.render_debug(stream)
-                except NotImplementedError as exc:
-                    self._send_json({"ok": False, "error": str(exc)}, 501)
-                    return
+                img = server.render_debug(stream)
                 if img is None:
                     self._send_json({"ok": False, "error": "no frame yet or unknown stream"}, 404)
+                else:
+                    self._send_png(img)
             else:
                 self._send_json({"ok": False, "error": "unknown endpoint"}, 404)
 

@@ -11,7 +11,8 @@ collections, block scalars (``|``, ``>``) and multiple documents are not
 part of the subset and raise ``ValueError``.  :func:`save_yaml` writes
 nested dicts, lists and scalars in that subset, laid out as PyYAML's
 ``safe_dump`` lays them out, so a sidecar the port writes reads back the
-same through this reader and through PyYAML.
+same through this reader and through PyYAML.  :func:`makedirs` is the
+CLIs' check of an output directory.
 """
 
 from __future__ import annotations
@@ -394,3 +395,13 @@ def save_yaml(data: Any, path: str, overwrite: bool = False) -> None:
         raise FileExistsError(f'Output file already exists in "{path}".')
     with open(path, "w") as f:
         f.write(dump_yaml_str(data))
+
+
+def makedirs(directory: str, exist_ok: bool = False) -> None:
+    """Create ``directory``; an existing one raises ``FileExistsError``
+    unless ``exist_ok`` (port of ``dream_tpu/utils/config.py:83``)."""
+    if os.path.exists(directory):
+        if not exist_ok:
+            raise FileExistsError(f'Specified directory "{directory}" already exists.')
+    else:
+        os.makedirs(directory)

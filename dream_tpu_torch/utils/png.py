@@ -13,8 +13,9 @@ the pixel to their left and run along the row in Python, which is
 affordable because encoders choose them for few rows.  Palette images, other bit depths and interlaced files raise
 ``ValueError`` naming the file, as does a JPEG.  :func:`decode_png` does the
 same for bytes in memory (an HTTP request's body), and :func:`read_png`
-reads a file and calls it.  :func:`write_png` writes
-RGB with the Up filter on every row at zlib level 6.
+reads a file and calls it.  :func:`encode_png` encodes RGB with the Up
+filter on every row at zlib level 6 (the HTTP server's debug streams), and
+:func:`write_png` writes those bytes to a file.
 """
 
 from __future__ import annotations
@@ -124,11 +125,12 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
     return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
 
 
-def write_png(path: str, image: np.ndarray) -> None:
-    """Write a uint8 RGB ``[H, W, 3]`` image: every row Up-filtered, zlib level 6."""
+def encode_png(image: np.ndarray) -> bytes:
+    """The PNG bytes of a uint8 RGB ``[H, W, 3]`` image: every row
+    Up-filtered, zlib level 6."""
     image = np.ascontiguousarray(image)
     if image.dtype != np.uint8 or image.ndim != 3 or image.shape[2] != 3:
-        raise ValueError(f"write_png takes uint8 [H, W, 3], got {image.dtype} {image.shape}")
+        raise ValueError(f"encode_png takes uint8 [H, W, 3], got {image.dtype} {image.shape}")
     height, width, _ = image.shape
     rows = image.reshape(height, width * 3)
     filtered = np.empty((height, width * 3 + 1), dtype=np.uint8)
@@ -136,6 +138,12 @@ def write_png(path: str, image: np.ndarray) -> None:
     filtered[0, 1:] = rows[0]
     np.subtract(rows[1:], rows[:-1], out=filtered[1:, 1:])  # uint8 wraps mod 256
     header = struct.pack(">IIBBBBB", width, height, 8, 2, 0, 0, 0)
+    return (_SIGNATURE + _chunk(b"IHDR", header)
+            + _chunk(b"IDAT", zlib.compress(filtered.tobytes(), 6)) + _chunk(b"IEND", b""))
+
+
+def write_png(path: str, image: np.ndarray) -> None:
+    """Write :func:`encode_png`'s bytes of ``image`` to ``path``."""
+    data = encode_png(image)
     with open(path, "wb") as f:
-        f.write(_SIGNATURE + _chunk(b"IHDR", header)
-                + _chunk(b"IDAT", zlib.compress(filtered.tobytes(), 6)) + _chunk(b"IEND", b""))
+        f.write(data)

@@ -9,9 +9,13 @@
   same poses (1e-3, 5e-3 under rejection) as there.  The HTTP round trip
   posts a PNG body.  Online int8 runs on that small vgg-Q with the port's
   initial parameters, and serving from an artifact on a ``torch.export``
-  artifact of it.  The pose-triad stream test becomes the test that every
-  debug stream is refused by name: the renders need ``visualize.py``,
-  which the port has not yet.
+  artifact of it.  The pose-triad stream test becomes the test of the five
+  debug renders: on a planted detection state (a random frame, net input
+  and belief maps, the planted detections and the solved pose) each
+  stream equals dream_tpu's ``render_debug`` of the same state pixel for
+  pixel, but ``keypoint_overlay``'s names, held to
+  ``tests/test_torch_visualize.py``'s loose text bound; over HTTP a stream
+  is a PNG; from an artifact ``net_input_image`` is None.
 - Parity: the r5 vgg-Q checkpoint's float32 parameters at a 96x96 net input
   and 160x120 synthetic frames (seeded parameters find almost no keypoint,
   the r5 ones most) go through ``dream_tpu.serve``'s server and the
@@ -64,7 +68,9 @@ from dream_tpu_torch.serve import (
     make_http_server,
 )
 from dream_tpu_torch.utils.config import load_yaml
+from dream_tpu_torch.utils.png import decode_png
 from tests.test_network import _vgg_config
+from tests.test_torch_visualize import assert_equal_but_names
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 R5_PARAMS = os.path.join(ROOT, "trained_models/results_r5/vggq/dream_vgg_q_r5.msgpack")
@@ -260,7 +266,8 @@ def test_serve_sentinel_detections_skipped():
 
 def test_http_transport_round_trip():
     K, X, uv, t_gt = _make_scene()
-    http = _Http(DreamInferenceServer(_OracleNetwork(uv), base_frame="base"))
+    server = DreamInferenceServer(_OracleNetwork(uv), base_frame="base")
+    http = _Http(server)
     try:
         assert http.post("/camera_info", json.dumps(
             {"fx": K[0, 0], "fy": K[1, 1], "cx": K[0, 2], "cy": K[1, 2]}).encode())["ok"]
@@ -271,10 +278,12 @@ def test_http_transport_round_trip():
         assert pose["ok"]
         np.testing.assert_allclose(pose["camera_from_robot"]["translation"], t_gt, atol=1e-3)
         assert http.get("/status")["frames_processed"] == 1
-        # A known debug stream: 501 naming what it waits for; unknown
-        # streams and endpoints: 404.
-        code, body = http.error("GET", "/debug/keypoint_overlay.png")
-        assert code == 501 and "visualize.py" in body["error"] and body["ok"] is False
+        # A known debug stream: its render as a PNG; unknown streams and
+        # endpoints: 404.
+        with urllib.request.urlopen(http.url + "/debug/keypoint_overlay.png") as resp:
+            assert resp.status == 200 and resp.headers["Content-Type"] == "image/png"
+            png = resp.read()
+        np.testing.assert_array_equal(decode_png(png), server.render_debug("keypoint_overlay"))
         assert http.error("GET", "/debug/nonsense.png")[0] == 404
         assert http.error("GET", "/nonsense")[0] == 404
         assert http.error("POST", "/nonsense", b"")[0] == 404
@@ -282,16 +291,44 @@ def test_http_transport_round_trip():
         http.close()
 
 
+class _DebugOracle(_OracleNetwork):
+    """Planted detections with a random net input and belief maps."""
+
+    def keypoints_from_image(self, image, image_preprocessing_override=None, debug=False,
+                             detailed=False):
+        result = super().keypoints_from_image(image, image_preprocessing_override, debug, detailed)
+        if debug:
+            rng = np.random.RandomState(5)
+            result["image_rgb_net_input"] = torch.from_numpy(rng.normal(0, 1, (64, 64, 3)).astype(np.float32))
+            result["belief_maps"] = torch.from_numpy(rng.uniform(-0.1, 1.1, (4, 16, 16)).astype(np.float32))
+        return result
+
+
 def test_debug_streams_are_refused_by_name():
+    """The five debug renders (formerly refused by name) against
+    dream_tpu's render of the same detection state."""
     K, X, uv, _ = _make_scene()
-    server = _ready(DreamInferenceServer(_OracleNetwork(uv), base_frame="base"), K, X)
-    server.process_image(IMAGE)
+    server = _ready(DreamInferenceServer(_DebugOracle(uv), base_frame="base"), K, X)
+    assert all(server.render_debug(stream) is None for stream in DEBUG_STREAMS)
+    image = np.random.RandomState(4).randint(0, 256, (240, 320, 3)).astype(np.uint8)
+    server.process_image(image)
     assert server.get_pose()["ok"]
     assert len(DEBUG_STREAMS) == 5
+    ref = jax_serve.DreamInferenceServer(_OracleNetwork(uv), base_frame="base")
+    ref.latest_detection = {k: (v.numpy() if isinstance(v, torch.Tensor) else v)
+                            for k, v in server.latest_detection.items()}
+    ref.latest_image, ref.latest_pose, ref.camera_K = image, server.latest_pose, server.camera_K
+    shapes = {"net_input_image": (64, 64, 3), "keypoint_overlay": (240, 320, 3),
+              "belief_maps": (16, 64, 3), "keypoint_belief_overlay": (240, 320, 3),
+              "keypoint_frame_overlay": (240, 320, 3)}
     for stream in DEBUG_STREAMS:
-        with pytest.raises(NotImplementedError, match="visualize.py") as info:
-            server.render_debug(stream)
-        assert stream in str(info.value)
+        ours, theirs = server.render_debug(stream), np.asarray(ref.render_debug(stream))
+        assert ours.shape == theirs.shape == shapes[stream], stream
+        if stream != "keypoint_overlay":
+            np.testing.assert_array_equal(ours, theirs, err_msg=stream)
+            continue
+        assert assert_equal_but_names(ours, theirs, image, uv, server.network.friendly_keypoint_names) > 100
+    assert not np.array_equal(server.render_debug("keypoint_frame_overlay"), image)
     assert server.render_debug("nonsense") is None
 
 
@@ -377,9 +414,13 @@ def test_serve_from_export_artifact(tmp_path):
     np.testing.assert_array_equal(art > -999.0, detected)
     np.testing.assert_allclose(art[detected], live[detected], atol=1e-3)
     assert tuple(server.latest_detection["belief_maps"].shape) == (4, 16, 16)
-    for stream in DEBUG_STREAMS:
-        with pytest.raises(NotImplementedError):
-            server.render_debug(stream)
+    # The net input stays inside the artifact's graph; no pose yet, so no
+    # triad; the other streams render.
+    assert server.render_debug("net_input_image") is None
+    assert server.render_debug("keypoint_frame_overlay") is None
+    assert server.render_debug("keypoint_overlay").shape == (96, 128, 3)
+    assert server.render_debug("belief_maps").shape == (16, 64, 3)
+    assert server.render_debug("keypoint_belief_overlay").shape == (96, 128, 3)
     with pytest.raises(AssertionError):
         server.process_image(np.zeros((64, 64, 3), np.uint8))
     with pytest.raises(AssertionError):
