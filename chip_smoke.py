@@ -229,13 +229,44 @@ since the script started, `elapsed_s`):
    server's net_input_image 404; (f) a HEAVY dump of 4 frames (12 PNGs) and
    an INTERACTIVE one (and index.html); (g) host ms a call of the drawing.
 
+31. the host image loader and JPEG frames, encoder pretraining and the
+   workflow's remaining tools, on the phase-17 sets: (a) which of libjpeg,
+   libpng and zlib (headers and libraries) and which compilers the
+   machine has, the loader's build time (into a temporary directory), the
+   64 holdout PNGs decoded by the loader bit for bit as decode_png decodes
+   them, and ms a frame at 1 and 8 threads; (b) a JPEG copy of the holdout
+   (quality 90, 4:2:0) written by scripts/make_jpeg_copy.py with PIL in a
+   process of its own (this script imports no PIL; without PIL the phase
+   fails), each frame decoded by the loader bit for bit as PIL decodes it,
+   ms a frame at 1 and 8 threads, and the evaluation CLI with vgg-Q r5 bf16
+   on it: 4 score launches, phase 18's PNG run's report as the reference
+   under phase 13's bounds (out-of-frame found within 2; PnP at least
+   56/60), frames/s; (c) the 64 JPEG frames through the
+   client to a live bf16 server on phase 21's network: the score kernel
+   once a request, found states as (b)'s keypoints.csv on all but 3
+   keypoints (median 0.05 px), poses published within 1 of (b)'s PnP
+   successes, request p50; (d) pretrain_encoder at its defaults (256x256,
+   batch 32, bf16), 200 steps on a 64-scene device pool (finite losses, the
+   last 50's mean below the first 50's) and 20 streamed steps, images/s of
+   each; (e) one training-CLI epoch of vgg-Q with the r5 flags from (d)'s
+   encoder (--init-encoder) on the 128-frame set: 32 leaves grafted, none
+   skipped, the warp kernel once a step; (f) resolve_pnp on (b)'s
+   keypoints.csv: plain reproduces (b)'s pnp_results.csv (names, success,
+   in-frame counts equal, poses and ADD within 1e-4), and --ransac, each
+   timed; (g) compress_checkpoint of (e)'s best network and of phase 19's
+   vgg-Q, each file and its float16 copy on 16 holdout frames: belief
+   maps correlating at >= 0.999 and PCK AUC within 0.005 (found states
+   printed).  With DREAM_SMOKE_ARTIFACTS naming a directory, the phase copies
+   (b)'s and phase 18's keypoints.csv and (f)'s RANSAC pnp_results.csv
+   there.
+
 Then a line listing the kernels with their measurements (each row's ms and
 library_ms time the same work; the score and warp rows' ms is device time
 from a CUDA graph, and the warp's library_ms too; the score row adds its
 device time at phase 15's shapes; redesigned_in names the design the kernel
 now has; launches are counted on the CLI runs of phases 18-19, the
-counted serving runs of phases 21-22, the runs of phase 30 and, for the
-score kernel, the int8 runs of phases 26-27), and as the last line
+counted serving runs of phases 21-22, the runs of phases 30 and 31 and,
+for the score kernel, the int8 runs of phases 26-27), and as the last line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
 before that line.  Without CUDA the script exits non-zero at once.
 """
@@ -1987,6 +2018,254 @@ def visualization_phase(kernels_of_port, reset_counts, smi, work, live):
     return counts
 
 
+def jpeg_and_tools_phase(kernels_of_port, reset_counts, smi, work, network):
+    """Phase 31: the host image loader, JPEG frames through the evaluation
+    CLI and the server, encoder pretraining, a training epoch from the
+    pretrained encoder, ``resolve_pnp`` and ``compress_checkpoint``, at full
+    width on the phase-17 sets.  ``network`` is phase 21's live vgg-Q r5
+    bf16 network.  Returns the phase's kernel launches."""
+    import shutil
+    from pathlib import Path
+
+    from dream_tpu_torch.analysis import evaluate_frames
+    from dream_tpu_torch.cli import compress_checkpoint as compress_cli
+    from dream_tpu_torch.cli import network_inference_dataset as eval_cli
+    from dream_tpu_torch.cli import pretrain_encoder as pretrain_cli
+    from dream_tpu_torch.cli import resolve_pnp as resolve_cli
+    from dream_tpu_torch.cli import train_network as train_cli
+    from dream_tpu_torch.data import native_loader
+    from dream_tpu_torch.network import create_network_from_config_file
+    from dream_tpu_torch.ops import cuda_build
+    from dream_tpu_torch.serve import DreamInferenceServer
+    from dream_tpu_torch.utils.ndds import find_ndds_data_in_dir, load_camera_intrinsics
+    from dream_tpu_torch.utils.png import read_png
+
+    def launches():
+        return {k: v.launches for k, v in kernels_of_port.items()}
+
+    counts = {k: 0 for k in kernels_of_port}
+
+    def timed(fn, *args):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result, text = quiet(fn, *args)
+        torch.cuda.synchronize()
+        c = launches()
+        for k, v in c.items():
+            counts[k] += v
+        return result, text, time.perf_counter() - t0, c
+
+    def ms_a_frame(paths, n_threads, h=480, w=640, reps=3):
+        native_loader.decode_batch(paths[:2], h, w, n_threads)
+        best = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            native_loader.decode_batch(paths, h, w, n_threads)
+            best.append((time.perf_counter() - t0) / len(paths) * 1e3)
+        return min(best)
+
+    hold, tmp, disk = work["hold"], work["tmp_dir"].name, work["disk"]
+    keep = os.environ.get("DREAM_SMOKE_ARTIFACTS")
+
+    # (a) The loader: what the machine offers it, its build, the 64 PNGs.
+    ldconfig = subprocess.run(["ldconfig", "-p"], capture_output=True, text=True, timeout=60).stdout
+    probe = {"headers": {h: os.path.exists(os.path.join("/usr/include", h))
+                         for h in ("jpeglib.h", "png.h", "zlib.h")},
+             "libraries": sorted(set(re.findall(r"\b(lib(?:jpeg|png\w*|z)\.so[.\d]*)", ldconfig))),
+             "compilers": {c: shutil.which(c) for c in ("g++", "gcc")}}
+    built_in = cuda_build.BUILD_DIR
+    cuda_build.BUILD_DIR = Path(tmp) / "loader_build"
+    try:
+        t0 = time.perf_counter()
+        cuda_build.build(native_loader.LIBRARY)
+        build_s = time.perf_counter() - t0
+    finally:
+        cuda_build.BUILD_DIR = built_in
+    found_data, found_configs = find_ndds_data_in_dir(hold)
+    png_paths = [d["image_paths"]["rgb"] for d in found_data]
+    frames = native_loader.decode_batch(png_paths, 480, 640, 8)
+    png_equal = sum(np.array_equal(f, read_png(p)) for f, p in zip(frames, png_paths))
+    t0 = time.perf_counter()
+    for p in png_paths[:8]:
+        read_png(p)
+    numpy_ms = (time.perf_counter() - t0) / 8 * 1e3
+    png_ms = {"1_thread": ms_a_frame(png_paths, 1), "8_threads": ms_a_frame(png_paths, 8)}
+    progress("image_loader_png", probe=probe, build_s=build_s, frames_equal_to_decode_png=png_equal,
+             ms_a_frame=png_ms, numpy_reader_ms_a_frame_1_thread=numpy_ms, card=smi,
+             host="the card machine's CPU")
+    if png_equal != HOLDOUT_FRAMES:
+        raise AssertionError(f"the loader decoded {png_equal} of {HOLDOUT_FRAMES} PNGs as decode_png does")
+
+    # (b) A JPEG copy of the holdout (quality 90, 4:2:0, written by PIL in a
+    # process of its own), decoded as PIL decodes it, through the
+    # evaluation CLI against phase 18's PNG run.
+    jpeg_dir = os.path.join(tmp, "hold64_jpg")
+    pil_npy = os.path.join(tmp, "pil_decoded.npy")
+    made = subprocess.run([sys.executable, os.path.join(ROOT, "scripts", "make_jpeg_copy.py"), hold, jpeg_dir,
+                           "--quality", "90", "--subsampling", "2", "--decoded", pil_npy],
+                          capture_output=True, text=True, timeout=300)
+    if made.returncode != 0:
+        raise AssertionError(f"scripts/make_jpeg_copy.py (PIL) failed:\n{made.stderr[-2000:]}")
+    jpeg_data, _ = find_ndds_data_in_dir(jpeg_dir)
+    jpeg_paths = [d["image_paths"]["rgb"] for d in jpeg_data]
+    pil = np.load(pil_npy)
+    jpeg_frames = native_loader.decode_batch(jpeg_paths, 480, 640, 8)
+    jpeg_equal = sum(np.array_equal(a, b) for a, b in zip(jpeg_frames, pil))
+    jpeg_ms = {"1_thread": ms_a_frame(jpeg_paths, 1), "8_threads": ms_a_frame(jpeg_paths, 8)}
+    jpeg_eval = os.path.join(tmp, "eval_vggq_jpeg")
+    (kp, pnp), text, eval_s, eval_counts = timed(eval_cli.network_inference_dataset, eval_cli.make_parser()
+                                                 .parse_args(["-i", CHECKPOINT, "-d", jpeg_dir, "-o", jpeg_eval,
+                                                              "--no-visualization", "-b", "16", "-w", "8"]))
+    result = {"keypoints": kp, "pnp": pnp, "pnp_transposed": {"add_auc": alternate_add_auc(text)}}
+    png_run = reference_metrics(os.path.join(work["vggq_dir"], "analysis_results.txt"))
+    # Quality-90 JPEG pixels are not the PNG run's, as vgg-F's are not its
+    # report's: out-of-frame found within vgg-F's 2 (the JPEG copy found 1
+    # where the PNG run found 0 on the H100).
+    measured, failures = eval_bounds(result, png_run, outframe_tol=2, min_pnp=56)
+    jpeg_vs_png = keypoint_agreement(os.path.join(jpeg_eval, "keypoints.csv"),
+                                     os.path.join(work["vggq_dir"], "keypoints.csv"))
+    progress("jpeg_evaluation_cli", written_by="PIL " + made.stdout.strip(), frames_equal_to_pil=jpeg_equal,
+             ms_a_frame=jpeg_ms, seconds=eval_s, frames_per_s=HOLDOUT_FRAMES / eval_s, launches=eval_counts,
+             measured=measured, png_run=png_run, keypoints_vs_png_run=jpeg_vs_png, card=smi)
+    if jpeg_equal != HOLDOUT_FRAMES:
+        failures.append(f"{jpeg_equal} of {HOLDOUT_FRAMES} JPEGs decoded as PIL decodes them")
+    if eval_counts["score_kernel"] != HOLDOUT_FRAMES // 16:
+        failures.append(f"the score kernel launched {eval_counts['score_kernel']} times, not once a batch")
+    if failures:
+        raise AssertionError("phase 31 (b): " + "; ".join(failures))
+    if keep:
+        os.makedirs(keep, exist_ok=True)
+        shutil.copyfile(os.path.join(jpeg_eval, "keypoints.csv"), os.path.join(keep, "keypoints_jpeg.csv"))
+        shutil.copyfile(os.path.join(work["vggq_dir"], "keypoints.csv"), os.path.join(keep, "keypoints_png.csv"))
+
+    # (c) The JPEG frames served live in bf16 at batch 1, through the client.
+    K = load_camera_intrinsics(found_configs["camera"])
+    server = DreamInferenceServer(network, base_frame="panda_link0")
+    httpd, url = start_http(server)
+    try:
+        http_post(url, "/camera_info", json.dumps(
+            {"fx": K[0, 0], "fy": K[1, 1], "cx": K[0, 2], "cy": K[1, 2]}).encode())
+        for i in range(3):
+            http_post(url, "/keypoint_positions", json.dumps(disk.kp_positions[i].tolist()).encode())
+            with open(jpeg_paths[i], "rb") as f:
+                http_post(url, "/image", f.read())
+        records = record_frames(server)
+        reset_counts()
+        lines, client = run_client(url, jpeg_dir)
+        serve_counts = launches()
+    finally:
+        stop_http(httpd)
+    for k, v in serve_counts.items():
+        counts[k] += v
+    detected = np.stack([r["detected"] for r in records])
+    vs_cli = detection_agreement(detected, csv_detections(os.path.join(jpeg_eval, "keypoints.csv")))
+    published = sum(bool(r["status"]["pnp"]) for r in records)
+    progress("jpeg_serving", requests=len(records), launches=serve_counts, detections_vs_evaluation_cli=vs_cli,
+             poses_published=published, evaluation_cli_pnp=[pnp["num_pnp_found"], pnp["num_pnp_possible"]],
+             client=client, request_ms_p50=client["image_ms_p50"], card=smi)
+    if (len(records) != HOLDOUT_FRAMES or len(lines) != HOLDOUT_FRAMES
+            or serve_counts["score_kernel"] != HOLDOUT_FRAMES
+            or vs_cli["same_found_state"] < vs_cli["keypoints"] - 3 or vs_cli["median_px"] > 0.05 or abs(published - pnp["num_pnp_found"]) > 1):
+        raise AssertionError("phase 31 (c): see the line above")
+
+    # (d) Encoder pretraining at the CLI's defaults (256x256, batch 32,
+    # bf16): 200 steps on a 64-scene device pool, then 20 streamed.
+    encoder = os.path.join(tmp, "encoder_ae.msgpack")
+    pretrained = {}
+    for route, argv in (("pool", ["-o", encoder, "--pool", "64", "--steps", "200"]),
+                        ("streamed", ["-o", os.path.join(tmp, "encoder_streamed.msgpack"), "--steps", "20",
+                                      "--log-every", "10"])):
+        res, _, seconds, c = timed(pretrain_cli.pretrain_encoder, pretrain_cli.make_parser().parse_args(argv))
+        losses = res["losses"]
+        pretrained[route] = {"seconds": seconds, "images_per_s": res["images_per_s"], "launches": c,
+                             "first_loss": float(losses[0]), "last_loss": float(losses[-1]),
+                             "n_params": res["n_params"]}
+        if not np.all(np.isfinite(losses)):
+            raise AssertionError(f"pretraining ({route}): losses not finite")
+        if route == "pool":
+            first, last = float(np.mean(losses[:50])), float(np.mean(losses[-50:]))
+            pretrained[route].update(mean_first_50=first, mean_last_50=last)
+            if not last < first:
+                raise AssertionError(f"pretraining: the last 50 losses' mean {last} is not below the first's {first}")
+    progress("pretrain_encoder", card=smi, **pretrained)
+
+    # (e) One training-CLI epoch of vgg-Q from the pretrained encoder.
+    train_out = os.path.join(tmp, "train_from_encoder")
+    steps_per_epoch = int(round(TRAIN_SET_FRAMES * 0.8)) // TRAIN_BATCH
+    _, text, train_s, train_counts = timed(train_cli.train_network, train_cli.make_parser().parse_args(
+        ["-i", os.path.join(tmp, "train128"), "-m", PANDA, "-ar", VGGQ_ARCH, "-o", train_out, "-e", "1",
+         "--loss-pos-weight", "50", "--init-encoder", encoder] + R5_TRAIN_FLAGS))
+    grafted = re.search(r"\((\d+) leaves grafted, (\d+) shape-skipped\)", text)
+    progress("training_from_encoder", grafted=grafted and grafted.group(0), seconds=train_s,
+             launches=train_counts)
+    if (grafted is None or (int(grafted.group(1)), int(grafted.group(2))) != (32, 0)
+            or train_counts["warp_kernel"] != steps_per_epoch):
+        raise AssertionError("phase 31 (e): see the line above")
+
+    # (f) resolve_pnp on (b)'s keypoints.csv: plain reproduces (b)'s
+    # pnp_results.csv; --ransac timed.
+    resolved = {}
+    for mode, flags in (("plain", []), ("ransac", ["--ransac"])):
+        out_dir = os.path.join(tmp, f"resolved_{mode}")
+        metrics, _, seconds, _ = timed(resolve_cli.resolve_pnp, resolve_cli.make_parser().parse_args(
+            ["-k", os.path.join(jpeg_eval, "keypoints.csv"), "-d", jpeg_dir, "-m", PANDA, "-o", out_dir] + flags))
+        resolved[mode] = {"seconds": seconds, "pnp_success": [metrics["num_pnp_found"], metrics["num_pnp_possible"]],
+                          "add_auc": metrics["add_auc"], "add_mean": metrics["add_mean"]}
+    with open(os.path.join(tmp, "resolved_plain", "pnp_results.csv")) as a, \
+            open(os.path.join(jpeg_eval, "pnp_results.csv")) as b:
+        rows_a, rows_b = list(csv.reader(a)), list(csv.reader(b))
+    same_rows = sum(x == y for x, y in zip(rows_a, rows_b))
+    pose_delta = max(float(np.max(np.abs(np.float64(x[2:10]) - np.float64(y[2:10]))))
+                     for x, y in zip(rows_a[1:], rows_b[1:]))
+    progress("resolve_pnp", **resolved, rows_equal=[same_rows, len(rows_b)], largest_pose_or_add_delta=pose_delta,
+             evaluation_cli={"pnp_success": [pnp["num_pnp_found"], pnp["num_pnp_possible"]],
+                             "add_auc": pnp["add_auc"]})
+    if (len(rows_a) != len(rows_b) or any(x[:2] != y[:2] or x[-1] != y[-1] for x, y in zip(rows_a, rows_b))
+            or pose_delta > 1e-4 or abs(resolved["plain"]["add_auc"] - pnp["add_auc"]) > 1e-6):
+        raise AssertionError("phase 31 (f): see the line above")
+    if keep:
+        shutil.copyfile(os.path.join(tmp, "resolved_ransac", "pnp_results.csv"),
+                        os.path.join(keep, "pnp_results_ransac_card.csv"))
+
+    # (g) compress_checkpoint of (e)'s best network and of phase 19's
+    # vgg-Q, then 16 holdout frames through each file and its float16 copy:
+    # the belief maps correlate at >= 0.999 and PCK AUC stays within 0.005.
+    # Found states are printed, not held: these networks are a few steps
+    # old, their maps hover near the threshold, and bf16 convs of
+    # float16-rounded weights flipped 5 of 112 on each on the H100.
+    frames16 = frames[:16]
+    gt16 = {"projections": disk.kp_projs_raw[:16], "positions": disk.kp_positions[:16]}
+    compressed = {}
+    for label, best in (("from_encoder", os.path.join(train_out, "best_network.msgpack")),
+                        ("phase_19_vgg-Q", os.path.join(tmp, "train_vggq", "best_network.msgpack"))):
+        best16 = os.path.join(tmp, f"{label}_f16.msgpack")
+        quiet(compress_cli.compress_checkpoint, best, best16)
+        evaluated, maps = [], []
+        for params in (best, best16):
+            net = create_network_from_config_file(os.path.splitext(params)[0] + ".yaml", params, device="cuda")
+            evaluated.append(timed(evaluate_frames, net, frames16, gt16, K, 16)[0])
+            with torch.no_grad():
+                maps.append(net._belief_maps(net.preprocess(torch.from_numpy(frames16))))
+            del net
+        a, b = evaluated
+        found_a, found_b = a["detected_raw"][..., 0] > -999.0, b["detected_raw"][..., 0] > -999.0
+        same = int(np.sum(found_a == found_b))
+        pck = [a["keypoints"]["l2_error_auc"], b["keypoints"]["l2_error_auc"]]
+        corr = map_correlation(maps[0], maps[1])
+        compressed[label] = {"bytes": [os.path.getsize(best), os.path.getsize(best16)],
+                             "same_found_state": [same, int(found_a.size)],
+                             "found": [int(found_a.sum()), int(found_b.sum())], "pck_auc": pck,
+                             "map_correlation": corr}
+        if corr < 0.999 or ((pck[0] is None) != (pck[1] is None)
+                            or (pck[0] is not None and abs(pck[0] - pck[1]) > 0.005)):
+            progress("compressed_checkpoint", **compressed)
+            raise AssertionError(f"phase 31 (g): {label}")
+    progress("compressed_checkpoint", **compressed)
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -2564,9 +2843,14 @@ def main():
     # 30. The visualization layer and what waits on it.
     viz_launches = visualization_phase(kernels_of_port, reset_counts, smi, workflow["work"],
                                        serving["live"])
+
+    # 31. The image loader, JPEG frames, encoder pretraining and the
+    # workflow's remaining tools.
+    tools_launches = jpeg_and_tools_phase(kernels_of_port, reset_counts, smi, workflow["work"],
+                                          serving["live"]["server"].network)
     workflow["work"]["tmp_dir"].cleanup()
     launched = {k: workflow["launches"][k] + serving["launches"].get(k, 0) + viz_launches[k]
-                for k in workflow["launches"]}
+                + tools_launches[k] for k in workflow["launches"]}
     launched["score_kernel"] += zoo_score_launches
     score_err = max(score_err, serving["max_abs_err"]["score_kernel"])
     conv_cases["serving chain links at B=1"] = serving["max_abs_err"]["conv_int8_kernel"]

@@ -1,6 +1,6 @@
 """Single-image inference: the port of ``scripts/network_inference.py``.
 
-Loads a checkpoint, detects the keypoints of one PNG frame on the card
+Loads a checkpoint, detects the keypoints of one frame on the card
 (``--device cpu`` for the CPU), prints them and, with ``-o``, writes the
 reference's five visualizations (reference scripts/network_inference.py:
 20-283) as files:
@@ -12,8 +12,9 @@ reference's five visualizations (reference scripts/network_inference.py:
 - ``keypoints_vs_gt.png``: ground truth (green) and detections (red), when
   the frame's NDDS ``.json`` lies beside it.
 
-Frames are read as PNG; a JPEG raises ``NotImplementedError`` (ROADMAP.md
-section 1, item 7).
+Frames are PNG or JPEG, read through the host loader
+(:func:`dream_tpu_torch.utils.png.read_image`); any other format raises
+``ValueError``.
 
 Example:
   python3 -m dream_tpu_torch.cli.network_inference \\
@@ -30,19 +31,7 @@ import numpy as np
 from dream_tpu_torch import visualize as viz
 from dream_tpu_torch.network import create_network_from_config_file
 from dream_tpu_torch.utils.ndds import load_keypoints
-from dream_tpu_torch.utils.png import decode_png, write_png
-
-JPEG_MAGIC = b"\xff\xd8"
-
-
-def read_frame(path: str) -> np.ndarray:
-    """A frame file -> uint8 RGB ``[H, W, 3]``; PNG only."""
-    with open(path, "rb") as f:
-        data = f.read()
-    if data.startswith(JPEG_MAGIC):
-        raise NotImplementedError(f"{path}: JPEG frames are not read by the port yet (ROADMAP.md "
-                                  "section 1, item 7); convert them to PNG")
-    return decode_png(data, path)
+from dream_tpu_torch.utils.png import read_image, write_png
 
 
 def generate_belief_map_visualizations(belief_maps, keypoint_projs_detected) -> np.ndarray:
@@ -61,7 +50,7 @@ def network_inference(args: argparse.Namespace) -> dict:
     net = create_network_from_config_file(network_config_path, args.input_params_path,
                                           device=args.device)
     net.enable_evaluation()
-    image_rgb = read_frame(args.image_path)
+    image_rgb = read_image(args.image_path)
     detection = net.keypoints_from_image(image_rgb, debug=True)
     kp_raw = detection["detected_keypoints"]
 
@@ -100,7 +89,7 @@ def make_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     parser.add_argument("-i", "--input-params-path", required=True)
     parser.add_argument("-c", "--network-config", default=None)
-    parser.add_argument("-m", "--image-path", required=True, help="A PNG frame.")
+    parser.add_argument("-m", "--image-path", required=True, help="A PNG or JPEG frame.")
     parser.add_argument("-o", "--output-dir", default=None,
                         help="Where to write the visualization PNGs.")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu.")

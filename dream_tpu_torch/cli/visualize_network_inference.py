@@ -9,9 +9,8 @@ scripts/visualize_network_inference.py:24-658).  Two inputs:
   the ground truth drawn in green under the red detections (:293-318,
   451-455); ``--int8-calibration-frames`` first calibrates int8 inference
   on the range's leading frames;
-- a directory of PNG frames: single-frame inference, no ground truth
-  (:322-382); a JPEG raises ``NotImplementedError`` (ROADMAP.md section 1,
-  item 7).
+- a directory of PNG or JPEG frames, read through the host loader:
+  single-frame inference, no ground truth (:322-382).
 
 Four visualization types (``-t``), each in ``<out>/<type>_frames/``:
 ``kp_overlay_raw``, ``kp_overlay_net_input``, ``kp_belief_overlay_raw`` and
@@ -37,7 +36,6 @@ import numpy as np
 import torch
 
 from dream_tpu_torch import visualize as viz
-from dream_tpu_torch.cli.network_inference import read_frame
 from dream_tpu_torch.data.dataset import (
     DataLoader,
     ManipulatorNDDSDataset,
@@ -48,7 +46,7 @@ from dream_tpu_torch.network import create_network_from_config_file
 from dream_tpu_torch.ops import coords as coord_ops
 from dream_tpu_torch.utils.config import makedirs
 from dream_tpu_torch.utils.ndds import find_ndds_data_in_dir, is_ndds_dataset, load_image_resolution
-from dream_tpu_torch.utils.png import write_png
+from dream_tpu_torch.utils.png import read_image, write_png
 
 # Visualization types (reference scripts/visualize_network_inference.py:54-57).
 KP_OVERLAY_RAW = "kp_overlay_raw"
@@ -173,7 +171,7 @@ def _image_dir_frames(net, dataset_dir, start, end) -> Iterator[dict]:
         raise ValueError(f"No frames found in {dataset_dir}")
     end = len(image_paths) if end is None else end
     for path in image_paths[start:end]:
-        image = read_frame(path)
+        image = read_image(path)
         detection = net.keypoints_from_image(image, debug=True)
         yield dict(raw_image=image, kp_raw=detection["detected_keypoints"],
                    belief_maps=detection["belief_maps"].float().cpu().numpy(),

@@ -1,13 +1,16 @@
 """NDDS datasets on disk, their loaders, and the device-side batch transform.
 
-Port of ``dream_tpu/data/dataset.py``.  The host decodes PNG frames with a
-thread pool (:mod:`dream_tpu_torch.utils.png`; zlib releases the GIL),
-parses keypoints once, shuffles, batches and prefetches
-(:class:`ManipulatorNDDSDataset`, :class:`DataLoader`); or it decodes the
-set once and keeps it on the card as uint8 (:class:`DeviceCachedLoader`),
-so batches become gathers there.  Everything after the decode runs on the
-device in :func:`make_batch_processor`: preprocessing, augmentation,
-normalization, keypoint frame conversion and the belief maps.  The shuffle
+Port of ``dream_tpu/data/dataset.py``.  The host decodes JPEG and PNG
+frames with the host loader's C++ thread pool
+(:mod:`dream_tpu_torch.data.native_loader`; with ``use_native_loader=False``,
+PNG frames with numpy and ``zlib`` in a Python thread pool,
+:mod:`dream_tpu_torch.utils.png`), parses keypoints once, shuffles, batches
+and prefetches (:class:`ManipulatorNDDSDataset`, :class:`DataLoader`); or
+it decodes the set once and keeps it on the card as uint8
+(:class:`DeviceCachedLoader`), so batches become gathers there.
+Everything after the decode runs on the device in
+:func:`make_batch_processor`: preprocessing, augmentation, normalization,
+keypoint frame conversion and the belief maps.  The shuffle
 order, the train/validation split and the calibration batches follow the
 JAX package's numpy ``RandomState`` draws, so a seed gives the same
 batches in both packages.
@@ -24,12 +27,13 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tupl
 import numpy as np
 import torch
 
+from dream_tpu_torch.data import native_loader
 from dream_tpu_torch.data.augment import DEFAULT_AUGMENT, AugmentConfig, augment_batch
 from dream_tpu_torch.ops import coords as coord_ops
 from dream_tpu_torch.ops.belief_maps import create_belief_maps
 from dream_tpu_torch.ops.image_proc import normalize_images, preprocess_images
 from dream_tpu_torch.utils import ndds as ndds_utils
-from dream_tpu_torch.utils.png import read_png
+from dream_tpu_torch.utils.png import read_image, read_png
 from dream_tpu_torch.utils.resolutions import KNOWN_IMAGE_PREPROC_TYPES
 
 
@@ -57,6 +61,11 @@ class ManipulatorNDDSDataset:
     keypoints of every frame are parsed at construction (float32
     ``kp_projs_raw [N, n_kp, 2]`` and ``kp_positions [N, n_kp, 3]``); images
     are decoded per batch by ``n_decode_threads`` threads.
+    ``use_native_loader`` None or True decodes JPEG and PNG through the host
+    loader, which is built at construction (a failed build raises), and
+    resizes a frame of another size to the camera's resolution as
+    ``dream_tpu``'s native loader does; False decodes PNG through the port's
+    numpy reader, which raises on a JPEG.
     """
 
     def __init__(
@@ -73,6 +82,7 @@ class ManipulatorNDDSDataset:
         include_belief_maps: bool = False,
         debug_mode: int = ManipulatorNDDSDatasetDebugLevels.NONE,
         n_decode_threads: int = 8,
+        use_native_loader: Optional[bool] = None,
         debug_dir: str = "dataset_debug",
     ):
         if include_belief_maps and not include_ground_truth:
@@ -95,6 +105,9 @@ class ManipulatorNDDSDataset:
         self.debug_dir = debug_dir
         self._debug_dumped: set = set()
         self._n_decode_threads = n_decode_threads
+        self._use_native_loader = use_native_loader is not False
+        if self._use_native_loader:
+            native_loader.load()
 
         n, n_kp = len(self.ndds_dataset_data), len(self.keypoint_names)
         self.kp_projs_raw = np.zeros((n, n_kp, 2), dtype=np.float32)
@@ -116,10 +129,15 @@ class ManipulatorNDDSDataset:
         return len(self.ndds_dataset_data)
 
     def _decode(self, index: int) -> np.ndarray:
-        return read_png(self.ndds_dataset_data[index]["image_paths"]["rgb"])
+        path = self.ndds_dataset_data[index]["image_paths"]["rgb"]
+        return read_image(path) if self._use_native_loader else read_png(path)
 
     def load_images(self, indices: Sequence[int]) -> np.ndarray:
         """Decode a batch of raw-resolution uint8 frames ``[B, H, W, 3]``."""
+        if self._use_native_loader:
+            w, h = self.image_raw_resolution
+            paths = [self.ndds_dataset_data[int(i)]["image_paths"]["rgb"] for i in indices]
+            return native_loader.decode_batch(paths, h, w, n_threads=self._n_decode_threads)
         with concurrent.futures.ThreadPoolExecutor(max_workers=self._n_decode_threads) as pool:
             return np.stack(list(pool.map(self._decode, [int(i) for i in indices])))
 

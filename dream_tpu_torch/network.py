@@ -104,12 +104,19 @@ def create_network_from_config_file(
     """Parity: ``dream_tpu.network.create_network_from_config_file``."""
     if not os.path.exists(config_file_path):
         raise FileNotFoundError(config_file_path)
-    network = DreamNetwork(load_yaml(config_file_path), device=device)
+    network = create_network_from_config_data(load_yaml(config_file_path), device=device)
     if network_params_path:
         if not os.path.exists(network_params_path):
             raise FileNotFoundError(network_params_path)
         network.load_network_params(network_params_path)
     return network
+
+
+def create_network_from_config_data(network_config_data: Dict[str, Any],
+                                    device: Any = "cuda") -> "DreamNetwork":
+    """Parity: ``dream_tpu.network.create_network_from_config_data``: the
+    network a loaded config dict describes, with its initial parameters."""
+    return DreamNetwork(network_config_data, device=device)
 
 
 def mse_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:

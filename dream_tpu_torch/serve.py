@@ -7,7 +7,7 @@ its JSON:
 
 | reference ROS surface                      | HTTP surface                    |
 |--------------------------------------------|---------------------------------|
-| image topic subscription                   | POST /image (PNG bytes)         |
+| image topic subscription                   | POST /image (PNG or JPEG bytes) |
 | camera_info topic                          | POST /camera_info               |
 | TF lookups of keypoint frames (FK)         | POST /keypoint_positions        |
 | /dream/capture_frame service               | POST /capture_frame             |
@@ -22,9 +22,9 @@ its JSON:
   through :func:`dream_tpu_torch.ops.geometric_vision.solve_pnp` with a
   batch of one on the network's device.
 - :func:`make_http_server`: the endpoints on ``ThreadingHTTPServer``, bound
-  to loopback by default.  ``POST /image`` decodes PNG with
-  :func:`dream_tpu_torch.utils.png.decode_png`; any other body (a JPEG)
-  gets a 400 JSON error naming the format.  ``GET /debug/<stream>.png``
+  to loopback by default.  ``POST /image`` decodes PNG or JPEG with
+  :func:`dream_tpu_torch.utils.png.decode_image` (the host loader); any
+  other body gets a 400 JSON error naming the format.  ``GET /debug/<stream>.png``
   renders one of the five debug streams of the latest frame
   (:meth:`DreamInferenceServer.render_debug`, through
   :mod:`dream_tpu_torch.visualize`) as ``image/png``; an unknown stream,
@@ -54,7 +54,7 @@ import torch
 
 from dream_tpu_torch import visualize as viz
 from dream_tpu_torch.ops import geometric_vision as gv
-from dream_tpu_torch.utils.png import decode_png, encode_png
+from dream_tpu_torch.utils.png import decode_image, encode_png
 
 # The debug renders of dream_tpu/serve.py:366-416.
 DEBUG_STREAMS = (
@@ -459,7 +459,7 @@ def make_http_server(server: DreamInferenceServer, host: str = "127.0.0.1", port
         def do_POST(self):
             try:
                 if self.path == "/image":
-                    image = decode_png(self._read_body(), "POST /image body")
+                    image = decode_image(self._read_body(), "POST /image body")
                     self._send_json({"ok": True, **server.process_image(image)})
                 elif self.path == "/camera_info":
                     info = json.loads(self._read_body())

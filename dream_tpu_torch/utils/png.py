@@ -1,21 +1,28 @@
-"""8-bit PNG reading and writing on the standard library's ``zlib`` and numpy.
+"""Frame decoding: JPEG and PNG through the host loader, and 8-bit PNG
+reading and writing on the standard library's ``zlib`` and numpy.
 
-The port runs where PIL is not installed, and every synthetic NDDS dataset
-holds its frames as PNG (``dream_tpu/data/synthetic.py:360`` writes them
-through PIL, ``dream_tpu/data/dataset.py:137-142`` reads them through PIL's
-``convert("RGB")``).  :func:`read_png` decodes the files PIL writes for
-8-bit images: colour types gray, gray+alpha, RGB and RGBA, returned as RGB
-as ``convert("RGB")`` returns them (gray replicated, alpha dropped), with
-all five row filters undone.  PIL's encoder picks a filter per row, so a
-frame mixes them; None, Sub and Up are undone across a whole row at once
-(Sub as a cumulative sum mod 256 per channel), Average and Paeth depend on
-the pixel to their left and run along the row in Python, which is
-affordable because encoders choose them for few rows.  Palette images, other bit depths and interlaced files raise
-``ValueError`` naming the file, as does a JPEG.  :func:`decode_png` does the
-same for bytes in memory (an HTTP request's body), and :func:`read_png`
-reads a file and calls it.  :func:`encode_png` encodes RGB with the Up
-filter on every row at zlib level 6 (the HTTP server's debug streams), and
-:func:`write_png` writes those bytes to a file.
+:func:`decode_image` is the port's decoder of a frame's bytes: it reads the
+magic bytes, as ``native/dream_loader.cpp`` ``DecodeFile`` does, and sends
+JPEG and PNG to the host loader (:mod:`dream_tpu_torch.data.native_loader`,
+libjpeg and libpng), which decodes them as ``dream_tpu``'s native loader
+and PIL's ``convert("RGB")`` do; any other format raises ``ValueError``
+naming it.  :func:`read_image` reads a file and calls it.
+
+:func:`decode_png` is the plain route, numpy and ``zlib`` alone, which the
+``torch.export`` artifacts' callers and the PNG-only paths keep: it
+decodes the files PIL writes for 8-bit images (``dream_tpu/data/
+synthetic.py:360`` writes every synthetic frame through PIL): colour types
+gray, gray+alpha, RGB and RGBA, returned as RGB as ``convert("RGB")``
+returns them (gray replicated, alpha dropped), with all five row filters
+undone.  PIL's encoder picks a filter per row, so a frame mixes them;
+None, Sub and Up are undone across a whole row at once (Sub as a
+cumulative sum mod 256 per channel), Average and Paeth depend on the pixel
+to their left and run along the row in Python, which is affordable because
+encoders choose them for few rows.  Palette images, other bit depths,
+interlaced files and JPEGs raise ``ValueError`` naming the file.
+:func:`read_png` reads a file and calls it.  :func:`encode_png` encodes
+RGB with the Up filter on every row at zlib level 6 (the HTTP server's
+debug streams), and :func:`write_png` writes those bytes to a file.
 """
 
 from __future__ import annotations
@@ -26,6 +33,10 @@ import zlib
 import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_JPEG_MAGIC = b"\xff\xd8"
+# Formats named in the error of a frame that is neither JPEG nor PNG.
+_OTHER_FORMATS = ((b"GIF87a", "GIF"), (b"GIF89a", "GIF"), (b"BM", "BMP"), (b"II*\x00", "TIFF"),
+                  (b"MM\x00*", "TIFF"))
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type -> samples a pixel
 
 
@@ -75,6 +86,37 @@ def _unfilter(raw: bytes, height: int, width: int, bpp: int, path: str) -> np.nd
     return out
 
 
+def image_format(data: bytes) -> str:
+    """The format the magic bytes of ``data`` name: ``"JPEG"``, ``"PNG"``,
+    another format's name, or ``"unknown"``."""
+    if data.startswith(_JPEG_MAGIC):
+        return "JPEG"
+    if data.startswith(_SIGNATURE):
+        return "PNG"
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return "WebP"
+    return next((name for magic, name in _OTHER_FORMATS if data.startswith(magic)), "unknown")
+
+
+def decode_image(data: bytes, path: str = "image data") -> np.ndarray:
+    """Decode the bytes of a JPEG or PNG frame to uint8 RGB ``[H, W, 3]``
+    through the host loader; ``path`` names the source in errors (a file,
+    a request body).  Any other format raises ``ValueError`` naming it."""
+    kind = image_format(data)
+    if kind not in ("JPEG", "PNG"):
+        raise ValueError(f"{path}: not a PNG or JPEG file ({kind} format); frames are read as "
+                         "PNG or JPEG")
+    from dream_tpu_torch.data.native_loader import decode_bytes
+
+    return decode_bytes(data, source=f"{path} ({kind})")
+
+
+def read_image(path: str) -> np.ndarray:
+    """Decode a JPEG or PNG file to uint8 RGB ``[H, W, 3]`` (:func:`decode_image`)."""
+    with open(path, "rb") as f:
+        return decode_image(f.read(), path)
+
+
 def read_png(path: str) -> np.ndarray:
     """Decode an 8-bit PNG file to uint8 RGB ``[H, W, 3]``."""
     with open(path, "rb") as f:
@@ -86,7 +128,7 @@ def decode_png(data: bytes, path: str = "PNG data") -> np.ndarray:
     names the source in errors (a file, a request body)."""
     if not data.startswith(_SIGNATURE):
         if data.startswith(b"\xff\xd8"):
-            raise ValueError(f"{path}: JPEG frames are not supported by the port's reader (PNG only)")
+            raise ValueError(f"{path}: a JPEG, which decode_png does not read (decode_image does)")
         raise ValueError(f"{path}: not a PNG file")
     pos = len(_SIGNATURE)
     header = None

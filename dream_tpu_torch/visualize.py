@@ -25,7 +25,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from dream_tpu_torch.utils import colormaps, raster, resample
-from dream_tpu_torch.utils.png import read_png
+from dream_tpu_torch.utils.png import read_image
 
 
 def _host_array(x, dtype=None) -> np.ndarray:
@@ -35,9 +35,9 @@ def _host_array(x, dtype=None) -> np.ndarray:
 
 
 def _load(image_input) -> np.ndarray:
-    """A path (PNG), an array or a tensor -> uint8 image (a copy)."""
+    """A path (PNG or JPEG), an array or a tensor -> uint8 image (a copy)."""
     if isinstance(image_input, str):
-        return read_png(image_input)
+        return read_image(image_input)
     return np.array(resample.as_image(image_input))
 
 
@@ -166,7 +166,7 @@ def mosaic_images(image_array_input, rows: Optional[int] = None, cols: Optional[
                   outer_padding_px: int = 0, inner_padding_px: int = 0,
                   fill_color_rgb=(255, 255, 255)) -> np.ndarray:
     """Grid mosaic, row by row (reference dream/image_proc.py:752-863), of
-    images of one size, or of PNG files by path."""
+    images of one size, or of PNG or JPEG files by path."""
     if image_array_input is None or len(image_array_input) == 0 or isinstance(image_array_input, str):
         raise ValueError("mosaic_images needs a list of images")
     images = [_load(im) for im in image_array_input]

@@ -24,7 +24,9 @@
   the reprojection error to a relative 1e-3, the tolerances of
   ``tests/test_torch_pnp_metrics.py``.  The dream_tpu network is built
   once for the module.
-- A JPEG body gets the 400 JSON error, naming the format.
+- A JPEG body gets what dream_tpu's server answers on the same bytes, the
+  frame decoded as PIL decodes it; a GIF body gets the 400 JSON error,
+  naming the format.
 - The calibration hazard: calibration is held halfway through its frames
   (an event in the batch iterator), a second thread posts a frame
   meanwhile, and that frame must run through no calibrating conv and leave
@@ -430,18 +432,44 @@ def test_serve_from_export_artifact(tmp_path):
 
 
 def test_jpeg_body_gets_the_400_json_error():
-    _, _, uv, _ = _make_scene()
-    http = _Http(DreamInferenceServer(_OracleNetwork(uv), base_frame="base"))
+    """A JPEG body, formerly a 400, now gets what dream_tpu's server
+    answers on the same bytes (the same status and JSON, the pose to
+    1e-3), and the network receives the frame PIL decodes, bit for bit.  A
+    body that is neither PNG nor JPEG (``GIF89a``) still gets the 400 JSON
+    error, naming its format (dream_tpu's PIL would read a GIF)."""
+    K, X, uv, _ = _make_scene()
+    seen = {}
+
+    class _Recording(_OracleNetwork):
+        def __init__(self, key):
+            super().__init__(uv)
+            self._key = key
+
+        def keypoints_from_image(self, image, *args, **kwargs):
+            seen[self._key] = np.asarray(image)
+            return super().keypoints_from_image(image, *args, **kwargs)
+
+    ours = _Http(_ready(DreamInferenceServer(_Recording("port"), base_frame="base"), K, X))
+    ref = _Http(_ready(jax_serve.DreamInferenceServer(_Recording("jax"), base_frame="base"), K, X),
+                jax_serve.make_http_server)
     try:
+        rng = np.random.RandomState(6)
+        frame = np.clip(rng.normal(128, 40, (240, 320, 3)), 0, 255).astype(np.uint8)
         buf = io.BytesIO()
-        Image.fromarray(IMAGE).save(buf, format="JPEG")
-        code, body = http.error("POST", "/image", buf.getvalue())
-        assert code == 400 and body["ok"] is False and "JPEG" in body["error"]
-        code, body = http.error("POST", "/image", b"GIF89a")
-        assert code == 400 and "not a PNG" in body["error"]
-        assert http.get("/status")["frames_processed"] == 0
+        Image.fromarray(frame).save(buf, format="JPEG", quality=90)
+        got, want = ours.post("/image", buf.getvalue()), ref.post("/image", buf.getvalue())
+        assert got == want and got["ok"] and got["pnp"]
+        np.testing.assert_array_equal(seen["port"], seen["jax"])
+        pose_a, pose_b = ours.get("/pose"), ref.get("/pose")
+        assert pose_a["ok"] and pose_b["ok"]
+        for key in ("translation", "quaternion_xyzw"):
+            np.testing.assert_allclose(pose_a[key], pose_b[key], atol=1e-3, rtol=0)
+        code, body = ours.error("POST", "/image", b"GIF89a")
+        assert code == 400 and body["ok"] is False and "GIF format" in body["error"]
+        assert ours.get("/status")["frames_processed"] == 1
     finally:
-        http.close()
+        ours.close()
+        ref.close()
 
 
 def test_calibration_holds_no_concurrent_frame():

@@ -9,14 +9,16 @@ parameters (``tests/test_torch_cli.py``'s ``jax_net_with``: no flax init).
   the port's files equals dream_tpu's drawing of the port's own detection
   (``keypoints_raw.png`` but for the keypoint names, held to
   ``tests/test_torch_visualize.py``'s text bound); the two packages'
-  detections agree within 1e-3 px; a JPEG raises ``NotImplementedError``.
+  detections agree within 1e-3 px, on the PNG frame and on a JPEG copy of
+  it; a truncated JPEG raises.
 - ``visualize_network_inference``, NDDS path (as
   ``tests/test_cli_tools.py``'s video test: frames 1-4 of 5, batch 2, all
   four types, no ffmpeg here): the same frame files as dream_tpu's script,
   of the same sizes; each frame equal to dream_tpu's ``_save_frame`` fed
   the port's inputs (no text is drawn); green ground truth on the raw
   overlay; with ``--int8-calibration-frames 2`` too (the port only).
-  The image-directory path writes its frames, and a JPEG there raises.
+  The image-directory path writes its frames; a JPEG among them gives
+  dream_tpu's frame and detections, and a truncated one raises.
 """
 
 import os
@@ -121,11 +123,24 @@ def test_network_inference_matches_jax(env, monkeypatch):
                            np.asarray(jviz.overlay_points_on_image(image, kp_raw, names)),
                            image, kp_raw, names)
 
+    # A real JPEG frame (formerly NotImplementedError): the two packages'
+    # detections agree as on the PNG; a truncated JPEG still raises.
     jpeg = str(env["root"] / "frame.jpg")
-    with open(jpeg, "wb") as f:
+    Image.open(frame).save(jpeg, quality=90)
+    ours = ni.network_inference(ni.make_parser().parse_args(["-i", env["params"], "-m", jpeg,
+                                                             "--device", "cpu"]))
+    ref = jax_ni.network_inference(type("Args", (), dict(
+        input_params_path=env["params"], network_config=None, image_path=jpeg, output_dir=None)))
+    kp_raw, ref_kp = ours["detected_keypoints"], np.asarray(ref["detected_keypoints"])
+    found = kp_raw[:, 0] > -999.0
+    assert found.sum() >= 4
+    np.testing.assert_array_equal(ref_kp[:, 0] > -999.0, found)
+    np.testing.assert_allclose(kp_raw[found], ref_kp[found], atol=1e-3)
+    truncated = str(env["root"] / "truncated.jpg")
+    with open(truncated, "wb") as f:
         f.write(b"\xff\xd8\xff\xe0" + bytes(64))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ni.network_inference(ni.make_parser().parse_args(["-i", env["params"], "-m", jpeg,
+    with pytest.raises(ValueError, match="JPEG"):
+        ni.network_inference(ni.make_parser().parse_args(["-i", env["params"], "-m", truncated,
                                                           "--device", "cpu"]))
 
 
@@ -189,7 +204,24 @@ def test_visualize_network_inference_image_dir(env):
     assert summary["frames"] == 2
     assert sorted(os.listdir(os.path.join(out, "belief_overlay_raw_frames"))) == ["000000.png", "000001.png"]
     assert read_png(os.path.join(out, "kp_overlay_net_input_frames", "000001.png")).shape == (96, 96, 3)
-    with open(frames_dir / "f3.jpg", "wb") as f:
+    # A real JPEG among the frames (formerly NotImplementedError): its
+    # frame and detections as dream_tpu's image-directory path gives them;
+    # a truncated JPEG still raises.
+    Image.open(os.path.join(env["data"], "000003.rgb.png")).save(frames_dir / "f3.jpg", quality=90)
+    net = DreamNetwork(network_config(), device="cpu")
+    net.load_network_params(env["params"])
+    ours = list(vni._image_dir_frames(net, str(frames_dir), 3, None))
+    ref = list(jax_vni._image_dir_frames(env["jax_net"], str(frames_dir), 3, None))
+    assert len(ours) == len(ref) == 1
+    np.testing.assert_array_equal(ours[0]["raw_image"], np.asarray(ref[0]["raw_image"]))
+    found = ours[0]["kp_raw"][:, 0] > -999.0
+    assert found.sum() >= 4
+    np.testing.assert_array_equal(np.asarray(ref[0]["kp_raw"])[:, 0] > -999.0, found)
+    np.testing.assert_allclose(ours[0]["kp_raw"][found], np.asarray(ref[0]["kp_raw"])[found], atol=1e-3)
+    summary = vni.visualize_network_inference(_video_args(
+        env, out, dataset=str(frames_dir), types=["kp_overlay_raw"]))
+    assert summary["frames"] == 3
+    with open(frames_dir / "f4.jpg", "wb") as f:
         f.write(b"\xff\xd8\xff\xe0" + bytes(64))
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="JPEG"):
         vni.visualize_network_inference(_video_args(env, out, dataset=str(frames_dir)))
