@@ -260,12 +260,45 @@ since the script started, `elapsed_s`):
    (b)'s and phase 18's keypoints.csv and (f)'s RANSAC pnp_results.csv
    there.
 
+32. the multi-GPU layer and the plots on the one card (dream_tpu_torch/
+   parallel): (a) vgg-Q r5 from its checkpoint, two augmented train_raw
+   steps at batch 32 on phase 6's frames, unsharded in bf16 and in float32,
+   each also with cuDNN choosing its algorithms by timing (rounding's own
+   spread, printed), then in bf16 as one NCCL rank through shard_for_mesh;
+   (b) two ranks sharing the card under gloo (spawned), in bf16 and in
+   float32: vgg-Q (data 2) and (data 1, model 2), and (b') ResNet-H from
+   initial parameters, batch 8, (data 2); and vgg-Q (data 1, model 2) in
+   float64 for one step against the unsharded float64 step; the ranks run
+   with this process's TF32 settings (off).  Each run is held to the unsharded run
+   of its network and dtype by the fixed gates of MESH_GATES (first step:
+   loss, gradients, running statistics; last step: loss, parameter
+   updates, running statistics), and the phase checks each gate against
+   the readings of planted faults (state unchanged, gradients summed over
+   the data ranks, split gradients scaled by the model axis, BatchNorm on
+   one rank's rows), printed beside it; ms a step of each layout; the warp
+   kernel once a step on each rank; (c) the training CLI with
+   --mesh-data 2 --dist-backend gloo for one epoch on the 128-frame set
+   with the r5 flags, each rank loading 16 frames of each global batch of
+   32: finite losses, the best network's msgpack layout equal to phase
+   19's one-rank run's, the warp kernel once a step on each rank; (d) a
+   2-stage vgg-Q cascade at 400x400 (the r5 sidecar with n_stages 2,
+   initial parameters, float32), batch 16 in 4 microbatches on [cuda:0,
+   cuda:0]: the pipelined maps within 1e-5 of the sequential forward's, the
+   keypoints equal, and one pipelined train step's loss within 1e-5
+   relative of the sequential criterion's; (e) analyze_training on (c)'s
+   run (the loss plot and the evaluation through the score kernel), then
+   add_plots (PNG) and oks_plots (PDF) on phase 18's CSVs: AUCs equal to
+   that run's report to its 5 digits, host ms to render a plot; (f)
+   dryrun_multichip(2, "cuda", "gloo").  The spawned ranks report their
+   kernel launches back.
+
 Then a line listing the kernels with their measurements (each row's ms and
 library_ms time the same work; the score and warp rows' ms is device time
 from a CUDA graph, and the warp's library_ms too; the score row adds its
 device time at phase 15's shapes; redesigned_in names the design the kernel
 now has; launches are counted on the CLI runs of phases 18-19, the
-counted serving runs of phases 21-22, the runs of phases 30 and 31 and,
+counted serving runs of phases 21-22, the runs of phases 30, 31 and 32
+(with its spawned ranks) and,
 for the score kernel, the int8 runs of phases 26-27), and as the last line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
 before that line.  Without CUDA the script exits non-zero at once.
@@ -276,6 +309,7 @@ import copy
 import csv
 import io
 import json
+import math
 import os
 import pickle
 import re
@@ -335,6 +369,49 @@ AUGMENTED_STEPS = 3
 FIXED_BATCH_STEPS = 6
 WARP_ATOL = 2e-3
 STEP_LOSS_RTOL = 1e-5
+# Phase 32: steps a mesh run takes, and the fixed gates that hold each mesh
+# run to the unsharded run of its network in its dtype: the first step's
+# loss (relative), gradients (relative L2, over every parameter and over the
+# channel-split ones alone: these hold a small share of vgg-Q's gradient
+# norm) and BatchNorm running statistics (largest difference over largest
+# magnitude), and after the last step the
+# loss, the parameter updates (mean absolute difference over the mean
+# update) and the running statistics.  Each gate lies below what a planted
+# fault reads, which the phase computes and checks: the state left
+# unchanged reads 1 on the updates; gradients summed over the D data ranks
+# instead of averaged read D - 1; the split convs' gradients scaled by the
+# M model ranks read M - 1 over the split parameters;
+# BatchNorm on one rank's rows (statistics not all-reduced) reads what the
+# unsharded network's first step on rank 0's rows gives.  None: printed,
+# not gated.  ResNet-H's gradient from initial parameters is ~1e-6 of the
+# signal its BatchNorm backward receives (the rest cancels), so rounding
+# alone moves it: 6% in float32, ~120% in bf16 (the unsharded bf16 run
+# against float32), the same on every leaf.  Its bf16 gradients and the
+# updates Adam makes of them are therefore held in float32 alone, where the
+# 0.1 gradient gate stands on scripts/mesh_gradient_conditioning.py's
+# witness (float64: two ranks equal one to rounding; float32: 6% from
+# float64, one rank or two).  vgg-Q's (data 1, model 2) float32 gradients
+# lie further from the unsharded float32 run's than that run lies from
+# float64 (both printed), while the same layout in float64 (one step,
+# ``dream_tpu_torch.parallel.dryrun.to_float64``) equals the unsharded
+# float64 run to float64's rounding (gate 1e-9): the split path is exact,
+# and float32 rounding moves this network's gradients further through it,
+# so that layout's float32 gradient gates are 1e-2.  Keys: (network,
+# dtype) and, where a layout's gates differ, (network, dtype, layout).
+MESH_STEPS = 2
+MESH_GATES = {
+    ("vgg-Q", "bfloat16"): {"loss_1": 5e-3, "grads_1": 0.1, "grads_split_1": 0.2, "loss_last": 2e-2,
+                            "update_last": 0.2},
+    ("vgg-Q", "float32"): {"loss_1": 1e-5, "grads_1": 1e-3, "loss_last": 1e-4, "update_last": 0.02},
+    ("vgg-Q", "float32", "model2"): {"loss_1": 1e-5, "grads_1": 1e-2, "grads_split_1": 1e-2,
+                                     "loss_last": 1e-4, "update_last": 0.02},
+    ("vgg-Q", "float64", "model2"): {"loss_1": 1e-6, "grads_1": 1e-9, "grads_split_1": 1e-9,
+                                     "loss_last": 1e-6, "update_last": 1e-9},
+    ("resnet-H", "bfloat16"): {"loss_1": 5e-3, "grads_1": None, "running_1": 0.1, "loss_last": 5e-2,
+                               "update_last": None, "running_last": 0.5},
+    ("resnet-H", "float32"): {"loss_1": 1e-5, "grads_1": 0.1, "running_1": 1e-4, "loss_last": 5e-3,
+                              "update_last": 0.5, "running_last": 0.05},
+}
 
 
 STARTED = time.perf_counter()
@@ -2266,6 +2343,352 @@ def jpeg_and_tools_phase(kernels_of_port, reset_counts, smi, work, network):
     return counts
 
 
+
+def update_mismatch(start, a, b):
+    """How far two runs' parameter updates from ``start`` differ: the mean
+    absolute difference of the updates over the mean absolute update, over
+    every float parameter."""
+    diff = total = 0.0
+    for k, v in start.items():
+        if not v.is_floating_point() or "running_" in k:
+            continue
+        da, db = a[k].double() - v.double(), b[k].double() - v.double()
+        diff += float((da - db).abs().sum())
+        total += float(db.abs().sum())
+    return diff / total
+
+
+def running_mismatch(a, b):
+    """Largest difference of the BatchNorm running statistics over their
+    largest magnitude."""
+    keys = [k for k in a if "running_" in k]
+    return max(float((a[k] - b[k]).abs().max()) for k in keys) / max(
+        float(b[k].abs().max()) for k in keys)
+
+
+def mesh_steps_phase(kernels_of_port, reset_counts, smi, frames):
+    """Phase 32 (a)-(b): train steps on meshes of ranks on the one card
+    against the unsharded runs, each held to ``MESH_GATES``.  ``frames`` is
+    phase 6's 32 rendered frames (``images``, ``projections``).  Returns
+    the kernel launches of this process and of every rank it spawned."""
+    import torch.distributed as dist
+
+    from dream_tpu_torch.parallel import mesh as mesh_ops
+    from dream_tpu_torch.parallel.dryrun import mesh_train_run, train_network_for_run, train_steps
+
+    counts, add, own = launch_counter(kernels_of_port)
+    raw, kps = frames["images"], frames["projections"].astype(np.float32)
+    dtypes = ("bfloat16", "float32")
+
+    def runs_of(config_path, dtype, **run):
+        return {"config": config_in(config_path, dtype), "steps": MESH_STEPS, "augment": True, **run}
+
+    nets = {"vgg-Q": {d: runs_of(CONFIG, d, params_path=CHECKPOINT, aug_seed=32,
+                                 batch={"raw": raw, "kp": kps}) for d in dtypes},
+            "resnet-H": {d: runs_of(RESNETS["resnet-H"][0], d, seed=0, aug_seed=33,
+                                    batch={"raw": raw[:8], "kp": kps[:8]}) for d in dtypes}}
+
+    # (a) The unsharded runs, each also with cuDNN choosing its algorithms
+    # by timing them (the same arithmetic in another order: rounding's own
+    # spread; a plain repeat is bit-identical), then one NCCL rank through
+    # shard_for_mesh in bf16.
+    reset_counts()
+
+    def benchmarked(run):
+        torch.backends.cudnn.benchmark = True
+        try:
+            return train_steps(train_network_for_run(run, "cuda"), run)
+        finally:
+            torch.backends.cudnn.benchmark = False
+
+    reference = {(name, d): [train_steps(train_network_for_run(runs[d], "cuda"), runs[d]),
+                             benchmarked(runs[d])] for name, runs in nets.items() for d in dtypes}
+    # The float64 witness of the split path: one step of vgg-Q in float64.
+    nets["vgg-Q"]["float64"] = dict(nets["vgg-Q"]["float32"], steps=1, float64=True)
+    reference[("vgg-Q", "float64")] = [train_steps(train_network_for_run(nets["vgg-Q"]["float64"], "cuda"),
+                                                   nets["vgg-Q"]["float64"])]
+    start = {name: {k: v.cpu() for k, v in
+                    train_network_for_run(runs["float32"], "cuda").model.state_dict().items()}
+             for name, runs in nets.items()}
+
+    def local_batchnorm_reading(dtype):
+        """The planted fault of BatchNorm on one rank's rows: the unsharded
+        network's first step on rank 0's rows of the first augmented global
+        batch, its running statistics against the reference's."""
+        run = nets["resnet-H"][dtype]
+        net = train_network_for_run(run, "cuda")
+        half = len(run["batch"]["raw"]) // 2
+        generator = torch.Generator(device="cuda").manual_seed(run["aug_seed"])
+        rows = net._batch_processor(generator, torch.as_tensor(run["batch"]["raw"][:half]).cuda(),
+                                    torch.as_tensor(run["batch"]["kp"][:half]).cuda(), shard=(0, 2))
+        local = train_steps(net, {"steps": 1, "batch": {"x": rows["image_rgb_input"],
+                                                        "target": rows["belief_maps"]}})
+        return running_mismatch(local["running_after_first_step"],
+                                reference[("resnet-H", dtype)][0]["running_after_first_step"])
+
+    local_bn = {d: local_batchnorm_reading(d) for d in dtypes}
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{mesh_ops.free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = mesh_ops.make_mesh(1, 1, ["cuda:0"])
+        run = nets["vgg-Q"]["bfloat16"]
+        nccl = train_steps(train_network_for_run(run, mesh.device, mesh), run)
+    finally:
+        dist.destroy_process_group()
+    add(own())
+    torch.cuda.empty_cache()
+
+    # (b) Two ranks sharing the card under gloo: vgg-Q (data 2) and (data 1,
+    # model 2), (b') ResNet-H (data 2) at batch 8, each in bf16 and float32.
+    layouts = [(f"b_{name}_{'data2' if nd == 2 else 'model2'}_{'bf16' if d == 'bfloat16' else d}",
+                name, d, nd, nm)
+               for d in dtypes for name, nd, nm in (("vgg-Q", 2, 1), ("vgg-Q", 1, 2), ("resnet-H", 2, 1))]
+    layouts.append(("b_vgg-Q_model2_float64", "vgg-Q", "float64", 1, 2))
+    t0 = time.perf_counter()
+    ranks = mesh_ops.spawn_local_ranks(
+        mesh_train_run, 2, "gloo", ["cuda:0", "cuda:0"],
+        [dict(nets[name][d], n_data=nd, n_model=nm) for _, name, d, nd, nm in layouts],
+        ["cuda:0", "cuda:0"])
+    spawn_s = time.perf_counter() - t0
+    for rank in ranks:
+        for run in rank:
+            add(run["launches"])
+
+    def differences(name, run, ref):
+        """``run`` against ``ref``: the first step's loss (relative),
+        gradients (relative L2, also over the split parameters alone where
+        there are any) and, for a ResNet, running statistics; and
+        after the last step its loss, the parameter updates and running
+        statistics."""
+        out = {"loss_1": abs(run["losses"][0] - ref["losses"][0]) / abs(ref["losses"][0]),
+               "grads_1": math.sqrt(sum(float((run["grads"][k].double() - g.double()).square().sum())
+                                        for k, g in ref["grads"].items())
+                                    / sum(float(g.double().square().sum()) for g in ref["grads"].values())),
+               "loss_last": abs(run["losses"][-1] - ref["losses"][-1]) / abs(ref["losses"][-1]),
+               "update_last": update_mismatch(start[name], run["state"], ref["state"])}
+        if run["split"]:
+            out["grads_split_1"] = math.sqrt(
+                sum(float((run["grads"][k].double() - ref["grads"][k].double()).square().sum())
+                    for k in run["split"])
+                / sum(float(ref["grads"][k].double().square().sum()) for k in run["split"]))
+        if name == "resnet-H":
+            out["running_1"] = running_mismatch(run["running_after_first_step"], ref["running_after_first_step"])
+            out["running_last"] = running_mismatch(run["state"], ref["state"])
+        return out
+
+    def fault_readings(name, dtype, n_data, n_model):
+        """What each planted fault reads, by the difference it shows in."""
+        out = {"update_last": {"state left unchanged": 1.0}}
+        if n_data > 1:
+            out["grads_1"] = {"gradients summed, not averaged": float(n_data - 1)}
+        if n_model > 1:
+            out["grads_split_1"] = {"split gradients scaled by M": float(n_model - 1)}
+        if name == "resnet-H" and n_data > 1:
+            out["running_1"] = {"BatchNorm on one rank's rows": local_bn[dtype]}
+        return out
+
+    rows = {}
+    for label, name, dtype, nd, nm, run in [("a_vgg-Q_nccl_1_rank_bf16", "vgg-Q", "bfloat16", 1, 1, nccl)] + [
+            layout + (result,) for layout, result in zip(layouts, ranks[0])]:
+        diff = differences(name, run, reference[(name, dtype)][0])
+        gate = MESH_GATES.get((name, dtype, "model2" if nm > 1 else "data"), MESH_GATES.get((name, dtype)))
+        faults = fault_readings(name, dtype, nd, nm)
+        gated = [k for k in diff if gate[k] is not None]
+        rows[label] = {"losses": run["losses"], "step_ms": run["step_ms"], "differences": diff, "gate": gate,
+                       "fault_readings": faults,
+                       "held": all(diff[k] <= gate[k] for k in gated),
+                       "gates_below_faults": all(r > gate[k] for k in gated for r in faults.get(k, {}).values())}
+        if nm > 1:
+            rows[label]["split_parameters"] = len(run["split"])
+    for name, runs in nets.items():
+        for d in dtypes:
+            refs = reference[(name, d)]
+            rows[f"unsharded {name} {d}"] = {
+                "losses": refs[0]["losses"], "step_ms": refs[0]["step_ms"],
+                "other_algorithms": differences(name, refs[1], refs[0]),
+                "bf16_vs_float32": differences(name, reference[(name, "bfloat16")][0],
+                                               reference[(name, "float32")][0])}
+    exact = reference[("vgg-Q", "float64")][0]
+    rows["unsharded vgg-Q float64"] = {
+        "losses": exact["losses"], "step_ms": exact["step_ms"],
+        "float32_vs_float64": {k: v for k, v in differences("vgg-Q", reference[("vgg-Q", "float32")][0],
+                                                               exact).items() if k.endswith("_1")}}
+    progress("mesh_training", card=smi, steps=MESH_STEPS, spawn_s=spawn_s,
+             gates="fixed (MESH_GATES), each below every planted fault's reading; None: printed, not "
+                   "gated (ResNet-H's bf16 gradients and updates are held in float32)", **rows)
+    if not all(r.get("held", True) and r.get("gates_below_faults", True) for r in rows.values()):
+        raise AssertionError("phase 32 (a)/(b): see the line above")
+    if not all(run["split"] for (_, _, _, _, nm), run in zip(layouts, ranks[0]) if nm > 1):
+        raise AssertionError("phase 32 (b): no parameter was split over the model axis")
+    if any(run["launches"]["warp_kernel"] != len(run["losses"]) for rank in ranks for run in rank):
+        raise AssertionError("phase 32 (b): a rank's augmented steps did not each launch the warp kernel")
+
+    return counts
+
+
+def launch_counter(kernels_of_port):
+    """``(counts, add, own)``: launch counts a phase sums, ``add(launches)``
+    adds a dict of them, ``own()`` reads this process's counters."""
+    counts = {k: 0 for k in kernels_of_port}
+
+    def add(launches):
+        for k, v in launches.items():
+            counts[k] += v
+
+    def own():
+        return {k: v.launches for k, v in kernels_of_port.items()}
+
+    return counts, add, own
+
+
+def mesh_cli_pipeline_plots_phase(kernels_of_port, reset_counts, smi, work, frames):
+    """Phase 32 (c)-(f): the training CLI on a mesh, the pipelined cascade,
+    analyze_training and the plot tools, the dry run.  Returns the kernel
+    launches of this process and of the CLI's and the dry run's ranks."""
+    from dream_tpu_torch import add_plots, oks_plots
+    from dream_tpu_torch.checkpoint import load_flax_checkpoint
+    from dream_tpu_torch.cli import analyze_training as analyze_cli
+    from dream_tpu_torch.cli import train_network as train_cli
+    from dream_tpu_torch.network import DreamNetwork
+    from dream_tpu_torch.parallel.dryrun import dryrun_multichip
+    from dream_tpu_torch.parallel.pipeline import make_pipeline_mesh, pipeline_multistage_train_step
+    from dream_tpu_torch.utils.config import load_yaml
+    from dream_tpu_torch.utils.plot import Plot
+
+    counts, add, own = launch_counter(kernels_of_port)
+    tmp = work["tmp_dir"].name
+    raw, kps = frames["images"], frames["projections"].astype(np.float32)
+
+    # (c) The training CLI on a (data 2) mesh of two gloo ranks on the card,
+    # one epoch on the 128-frame set.
+    mesh_out = os.path.join(tmp, "train_mesh")
+    argv = (["-i", os.path.join(tmp, "train128"), "-m", PANDA, "-ar", VGGQ_ARCH, "-o", mesh_out, "-e", "1",
+             "--loss-pos-weight", "50"] + R5_TRAIN_FLAGS + ["--mesh-data", "2", "--dist-backend", "gloo"])
+    t0 = time.perf_counter()
+    cli_ranks, _ = quiet(train_cli.train_network, train_cli.make_parser().parse_args(argv))
+    cli_s = time.perf_counter() - t0
+    for rank in cli_ranks:
+        add(rank["launches"])
+    with open(os.path.join(mesh_out, "training_log.pkl"), "rb") as f:
+        log = pickle.load(f)
+    n_steps = len(log["batch_training_losses"][0])
+    one_rank = os.path.join(tmp, "train_vggq", "best_network.msgpack")
+
+    def layout(path):
+        tree = load_flax_checkpoint(path)
+
+        def walk(node, prefix=""):
+            for k, v in node.items():
+                if isinstance(v, dict):
+                    yield from walk(v, f"{prefix}{k}/")
+                else:
+                    yield f"{prefix}{k}", tuple(np.shape(v))
+        return dict(walk(tree))
+
+    same_layout = layout(os.path.join(mesh_out, "best_network.msgpack")) == layout(one_rank)
+    files = sorted(os.listdir(mesh_out))
+    progress("training_cli_mesh", seconds=cli_s, files=files, batch_losses=log["batch_training_losses"][0],
+             validation_losses=log["batch_validation_losses"][0], same_checkpoint_layout_as_1_rank=same_layout,
+             mesh=load_yaml(os.path.join(mesh_out, "epoch_1.yaml"))["training"]["platform"]["mesh"],
+             frames_a_rank_a_step=len(log["batch_training_sample_names"][0][0]),
+             rank_launches=[r["launches"] for r in cli_ranks])
+    if (not same_layout or not np.all(np.isfinite(log["batch_training_losses"][0]))
+            or "epoch_1.opt.msgpack" not in files or n_steps == 0
+            or len(log["batch_training_sample_names"][0][0]) != 16):
+        raise AssertionError("phase 32 (c): see the line above")
+    if any(r["launches"]["warp_kernel"] != n_steps for r in cli_ranks):
+        raise AssertionError("phase 32 (c): a rank's augmented steps did not each launch the warp kernel")
+
+    # (d) A 2-stage vgg-Q cascade at 400x400 (initial parameters, float32),
+    # batch 16 in 4 microbatches on [cuda:0, cuda:0]: pipelined maps and
+    # keypoints against the sequential forward's, then one pipelined train
+    # step's loss against the sequential criterion.
+    cfg = config_in(CONFIG, "float32")
+    cfg["architecture"]["n_stages"] = 2
+    cascade = DreamNetwork(cfg, device="cuda", seed=0)
+    x16 = cascade.preprocess(torch.from_numpy(frames["images"][:16]))
+    batch16 = processor_for(cascade, augment=False)(None, torch.from_numpy(raw[:16]).cuda(),
+                                                     torch.from_numpy(kps[:16]).cuda())
+    reset_counts()
+    belief_seq, kp_seq = cascade.inference(x16)
+    seq_loss = float(cascade.loss([batch16["image_rgb_input"]], batch16["belief_maps"]))
+    stages = cascade.enable_pipeline_inference(4, make_pipeline_mesh(2, ["cuda:0", "cuda:0"]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    belief_pipe, kp_pipe = cascade.inference(x16)
+    torch.cuda.synchronize()
+    pipe_ms = (time.perf_counter() - t0) * 1e3
+    pipe_launches = own()
+    add(pipe_launches)
+    step, state = pipeline_multistage_train_step(
+        cascade.model, None, lambda p: torch.optim.Adam(p, 1e-4), stages, 4,
+        cfg["architecture"]["loss"], remat=True)
+    state, pipe_loss = step(state, batch16["image_rgb_input"], batch16["belief_maps"])
+    pipe_loss = float(pipe_loss)
+    map_diff = float((belief_pipe - belief_seq).abs().max())
+    same_kp = bool(torch.equal(kp_pipe, kp_seq))
+    progress("pipeline", card=smi, stages=[str(d) for d in stages], microbatches=4, batch=16,
+             max_abs_map_diff=map_diff, keypoints_equal=same_kp, pipelined_loss=pipe_loss,
+             sequential_loss=seq_loss, inference_ms=pipe_ms, launches=pipe_launches)
+    if map_diff > 1e-5 or not same_kp or abs(pipe_loss - seq_loss) > 1e-5 * abs(seq_loss) \
+            or pipe_launches["score_kernel"] < 2:
+        raise AssertionError("phase 32 (d): see the line above")
+    del cascade, state, step
+    torch.cuda.empty_cache()
+
+    # (e) analyze_training on (c)'s run (loss plot, evaluation through the
+    # score kernel), then add_plots and oks_plots on phase 18's CSVs.
+    reset_counts()
+    analysis_dir = os.path.join(tmp, "analysis_mesh")
+    t0 = time.perf_counter()
+    quiet(analyze_cli.analyze_training, analyze_cli.make_parser().parse_args(
+        ["-i", os.path.join(mesh_out, "best_network.msgpack"), "-o", analysis_dir]))
+    analyze_s = time.perf_counter() - t0
+    analyze_launches = own()
+    add(analyze_launches)
+    report = reference_metrics(os.path.join(work["vggq_dir"], "analysis_results.txt"))
+    pdf, png = os.path.join(tmp, "pck.pdf"), os.path.join(tmp, "add.png")
+    oks_fig, oks_text = quiet(oks_plots.main, ["--data", os.path.join(work["vggq_dir"], "keypoints.csv"),
+                                               "--labels", "vgg-Q_r5", "--output", pdf])
+    add_fig, add_text = quiet(add_plots.main, ["--data", os.path.join(work["vggq_dir"], "pnp_results.csv"),
+                                               "--labels", "vgg-Q_r5", "--output", png])
+    pck_auc = float(re.search(r"^auc (\S+)$", oks_text, re.M).group(1))
+    add_auc = float(re.search(r"^auc (\S+)$", add_text, re.M).group(1))
+    plot_ms = ms_a_call(lambda: Plot.render(add_fig), reps=3)
+    with open(pdf, "rb") as f:
+        pdf_ok = f.read(8) == b"%PDF-1.4"
+    with open(png, "rb") as f:
+        png_ok = f.read(8) == b"\x89PNG\r\n\x1a\n"
+    progress("plots", analyze_training_s=analyze_s, analyze_files=sorted(os.listdir(analysis_dir)),
+             analyze_launches=analyze_launches, pck_auc=pck_auc, report_pck_auc=report["pck_auc"],
+             add_auc=add_auc, report_add_auc=report["add_auc"], pdf_written=pdf_ok, png_written=png_ok,
+             render_add_plot_host_ms=plot_ms)
+    if (abs(pck_auc - report["pck_auc"]) > 5e-6 or abs(add_auc - report["add_auc"]) > 5e-6 or not pdf_ok
+            or not png_ok or "train_valid_loss.png" not in os.listdir(analysis_dir)
+            or analyze_launches["score_kernel"] < 1):
+        raise AssertionError("phase 32 (e): see the line above")
+
+    # (f) dryrun_multichip(2) on the card under gloo.
+    t0 = time.perf_counter()
+    dry, dry_text = quiet(dryrun_multichip, 2, "cuda", "gloo")
+    dry_s = time.perf_counter() - t0
+    for rank in dry["ranks"]:
+        add(rank["launches"])
+    progress("dryrun_multichip", seconds=dry_s, line=dry_text.strip().splitlines()[-1],
+             ranks=dry["ranks"], pipeline_loss=dry["pipeline_loss"])
+    if not all(np.isfinite(r["loss"]) for r in dry["ranks"]) or not np.isfinite(dry["pipeline_loss"]):
+        raise AssertionError("phase 32 (f): see the line above")
+    return counts
+
+
+def multigpu_and_plots_phase(kernels_of_port, reset_counts, smi, work, frames):
+    """Phase 32: the multi-GPU layer and the plots on the one card.  Returns
+    the kernel launches of this process and of every rank it spawned."""
+    steps = mesh_steps_phase(kernels_of_port, reset_counts, smi, frames)
+    rest = mesh_cli_pipeline_plots_phase(kernels_of_port, reset_counts, smi, work, frames)
+    return {k: steps[k] + rest[k] for k in steps}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -2848,9 +3271,12 @@ def main():
     # workflow's remaining tools.
     tools_launches = jpeg_and_tools_phase(kernels_of_port, reset_counts, smi, workflow["work"],
                                           serving["live"]["server"].network)
+
+    # 32. The multi-GPU layer and the plots.
+    mesh_launches = multigpu_and_plots_phase(kernels_of_port, reset_counts, smi, workflow["work"], frames)
     workflow["work"]["tmp_dir"].cleanup()
     launched = {k: workflow["launches"][k] + serving["launches"].get(k, 0) + viz_launches[k]
-                + tools_launches[k] for k in workflow["launches"]}
+                + tools_launches[k] + mesh_launches[k] for k in workflow["launches"]}
     launched["score_kernel"] += zoo_score_launches
     score_err = max(score_err, serving["max_abs_err"]["score_kernel"])
     conv_cases["serving chain links at B=1"] = serving["max_abs_err"]["conv_int8_kernel"]

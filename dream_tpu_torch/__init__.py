@@ -28,12 +28,20 @@ with the same module names so each counterpart is easy to find:
                                    and matplotlib's algorithms carried in
                                    ``utils/raster.py``, ``utils/resample.py``
                                    and ``utils/colormaps.py``)
+- ``dream_tpu_torch.parallel``  -- the (data, model) mesh of ranks over
+                                   process groups, channel-split convs, the
+                                   multistage cascade as a GPipe pipeline
+- ``dream_tpu_torch.add_plots``, ``oks_plots`` -- ADD and PCK curves, drawn
+                                   by the port's line-chart renderer
+                                   (``utils/plot.py``)
 - ``dream_tpu_torch.cli``       -- the command-line entry points: datasets,
-                                   training, dataset evaluation, single-image
-                                   and video inference, serving, export
+                                   training (one device or a mesh of ranks),
+                                   dataset evaluation, training analysis,
+                                   single-image and video inference, serving,
+                                   export
 
 It imports torch, numpy, scipy and the standard library only, never jax,
-dream_tpu, cv2, PIL or matplotlib.  Importing it builds nothing: each CUDA
+dream_tpu, cv2, PIL, matplotlib or pandas.  Importing it builds nothing: each CUDA
 kernel is compiled with nvcc on its first launch.  The top-level modules
 load on first access (``dream_tpu_torch.visualize``), as in ``dream_tpu``.
 """
@@ -42,7 +50,8 @@ import importlib
 
 __version__ = "0.1.0"
 
-_LAZY_MODULES = ("analysis", "export", "network", "serve", "visualize")
+_LAZY_MODULES = ("add_plots", "analysis", "export", "network", "oks_plots", "parallel", "serve",
+                 "visualize")
 
 
 def __getattr__(name):

@@ -20,7 +20,9 @@ the JAX package's layout, ``:212-259`` and ``:620-739``), and by default
 the best, median and worst samples' mosaics (``:838-876``).
 :func:`evaluate_frames` does the plain-PnP evaluation over frames already
 in memory; :func:`sample_range_analysis` (``:740-835``) writes one
-sample's belief-map mosaics and net-input overlay.
+sample's belief-map mosaics and net-input overlay;
+:func:`plot_train_valid_loss` (``:44-85``) draws the loss curves of a
+training log.
 """
 
 from __future__ import annotations
@@ -42,6 +44,45 @@ from dream_tpu_torch.data.dataset import (
 from dream_tpu_torch.ops import coords as coord_ops
 from dream_tpu_torch.ops import geometric_vision as gv
 from dream_tpu_torch.utils import ndds as ndds_utils
+
+
+def plot_train_valid_loss(epochs, training_loss, validation_loss, dataset_name=None,
+                          save_plot_path=None):
+    """Training-vs-validation loss plot (``dream_tpu/analysis.py:44-85``):
+    lines of a float a epoch, or the mean of each epoch's per-batch losses
+    with +-1 standard deviation error bars.  Drawn by the port's renderer
+    (:mod:`dream_tpu_torch.utils.plot`) and returned as its
+    :class:`~dream_tpu_torch.utils.plot.Plot`, where ``dream_tpu`` returns
+    matplotlib's ``(fig, ax)``; written to ``save_plot_path`` when given
+    (``.png`` or ``.pdf``; none gets ``.png``)."""
+    from dream_tpu_torch.utils.plot import Plot
+
+    if len(epochs) != len(training_loss) or len(epochs) != len(validation_loss):
+        raise ValueError("epochs, training_loss and validation_loss differ in length")
+    plot_title = "Training vs. validation loss"
+    fig = Plot()
+    if isinstance(training_loss[0], float):
+        fig.plot(epochs, training_loss, ".-", label="Training")
+        fig.plot(epochs, validation_loss, ".-", label="Validation")
+    else:
+        plot_title += " (batch-wise mean +- 1 stdev)"
+        fig.errorbar(epochs, [np.mean(x) for x in training_loss],
+                     yerr=[np.std(x) for x in training_loss], marker=".", linestyle="-",
+                     label="Training")
+        fig.errorbar(epochs, [np.mean(x) for x in validation_loss],
+                     yerr=[np.std(x) for x in validation_loss], marker=".", linestyle="-",
+                     label="Validation")
+    fig.grid()
+    fig.set_xlabel("Training epoch")
+    fig.set_ylabel("Loss")
+    fig.set_xlim((epochs[0], epochs[-1]))
+    if dataset_name:
+        plot_title += f": {dataset_name}"
+    fig.set_title(plot_title)
+    fig.legend(loc="best")
+    if save_plot_path:
+        fig.savefig(save_plot_path)
+    return fig
 
 
 def keypoint_metrics(keypoints_detected, keypoints_gt, image_resolution,

@@ -36,7 +36,7 @@ the port saved.
 from __future__ import annotations
 
 import struct
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -424,7 +424,9 @@ def save_flax_checkpoint(path: str, tree: Dict[str, Any]) -> None:
 
 
 def optimizer_state_to_flax(optimizer_config: Dict[str, Any], named_parameters,
-                            optimizer: torch.optim.Optimizer, steps: int) -> Dict[str, Any]:
+                            optimizer: torch.optim.Optimizer, steps: int,
+                            whole: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None
+                            ) -> Dict[str, Any]:
     """The tree ``flax.serialization.to_bytes`` writes for the optax state
     ``dream_tpu`` builds from ``optimizer_config`` (``network.py:394-435``),
     from the torch optimizer after ``steps`` steps.
@@ -435,7 +437,9 @@ def optimizer_state_to_flax(optimizer_config: Dict[str, Any], named_parameters,
     Adam's state.  Global-norm clipping chains its empty state in front:
     ``{"0": {}, "1": <the above>}``.  ``mu`` and ``nu`` are torch Adam's
     ``exp_avg`` and ``exp_avg_sq`` in the parameters' flax layout; counts are
-    0-d int32.  ``named_parameters`` is ``model.named_parameters()``.
+    0-d int32.  ``named_parameters`` is ``model.named_parameters()``;
+    ``whole(name, tensor)``, where given, makes a parameter's moment whole
+    (a channel-split parameter's are gathered).
     """
     count = np.asarray(steps, dtype=np.int32)
     if optimizer_config["type"] == "adam":
@@ -444,6 +448,8 @@ def optimizer_state_to_flax(optimizer_config: Dict[str, Any], named_parameters,
             state = optimizer.state.get(p, {})
             mu[name] = state.get("exp_avg", torch.zeros_like(p))
             nu[name] = state.get("exp_avg_sq", torch.zeros_like(p))
+            if whole is not None:
+                mu[name], nu[name] = whole(name, mu[name]), whole(name, nu[name])
         first = {"count": count, "mu": params_to_flax(mu)["params"], "nu": params_to_flax(nu)["params"]}
     else:
         first = {}

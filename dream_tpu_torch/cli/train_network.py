@@ -1,7 +1,8 @@
 """Train a DREAM network on an NDDS dataset, with checkpoints and resume.
 
 The port's ``scripts/train_network.py``: the same flags, config assembly,
-checkpoint layout and resume semantics, on one device.
+checkpoint layout and resume semantics, on one device or on a ``(data,
+model)`` mesh of ranks.
 
 - The host decodes frames (:class:`~dream_tpu_torch.data.dataset.DataLoader`,
   a prefetch thread), or ``--cache-device`` decodes the set once and keeps it
@@ -17,9 +18,20 @@ checkpoint layout and resume semantics, on one device.
 - ``-r`` resumes from the newest ``epoch_N`` with its parameters, optimizer
   state, schedule position and EMA, and the logged seed (the same split).
 
-``--mesh-data``/``--mesh-model`` above 1 and ``--distributed`` (with its
-coordinator and process flags) belong to the multi-GPU slice, which the
-port has not yet; they raise.
+- ``--mesh-data D --mesh-model M`` (``D * M`` above 1) spawns ``D * M``
+  local ranks in one invocation (:mod:`dream_tpu_torch.parallel.mesh`):
+  under NCCL (the default on the card) one GPU each, under ``--dist-backend
+  gloo`` all on ``--device``, so ranks can share one card or the CPU.
+  ``--distributed`` runs one rank a process from ``--coordinator-address``,
+  ``--num-processes`` and ``--process-id`` (``--mesh-data`` defaults to the
+  process count there).  The global batch ``-b`` must divide by ``D``.
+  As in ``dream_tpu``, each data rank loads a disjoint, equal part of the
+  training and validation splits, ``b / D`` frames a step; each step's
+  loss, gradients and BatchNorm statistics are those of the global batch
+  the ranks' frames make, its augmentation drawn for that global batch.
+  Rank 0 alone prints, writes the checkpoints, in a one-rank run's layout,
+  and the logs.  NCCL with two ranks on one device raises; nothing
+  switches backend or device.
 
 Example (the r5 vgg-Q recipe):
   python3 -m dream_tpu_torch.cli.train_network -i _scratch/d768 \\
@@ -32,6 +44,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import copy
 import os
 import pickle
@@ -50,6 +63,8 @@ from dream_tpu_torch.checkpoint import (
 )
 from dream_tpu_torch.data import dataset as dream_data
 from dream_tpu_torch.network import KNOWN_OPTIMIZERS, DreamNetwork, resolve_device
+from dream_tpu_torch.ops import kernel_launches
+from dream_tpu_torch.parallel import mesh as mesh_ops
 from dream_tpu_torch.utils.config import load_yaml, save_yaml
 from dream_tpu_torch.utils.ndds import find_ndds_data_in_dir, load_image_resolution
 
@@ -108,39 +123,81 @@ def _set_random_seed(seed: int) -> None:
     torch.manual_seed(seed)
 
 
-def _unported_flags(args) -> list:
-    flags = []
-    if args.mesh_data * args.mesh_model > 1:
-        flags.append("--mesh-data/--mesh-model above 1")
-    if args.distributed or args.coordinator_address or args.num_processes or args.process_id is not None:
-        flags.append("--distributed and its coordinator/process flags")
-    return flags
-
-
 def train_network(args):
+    """Train as the flags say.  Returns the trained network of a one-rank
+    run (or of this process's rank under ``--distributed``); a run on a
+    mesh of spawned ranks returns each rank's record, ``{"rank",
+    "launches"}`` with the kernel launches it made (its results are the
+    files in ``-o``)."""
     if args.epochs <= 0 or args.batch_size <= 0:
         raise ValueError("--epochs and --batch-size must be positive")
     if not 0.0 < args.training_data_fraction < 1.0:
         raise ValueError("--training-data-fraction must lie in (0, 1)")
-    unported = _unported_flags(args)
-    if unported:
-        raise NotImplementedError(
-            f"{', '.join(unported)}: multi-GPU training is not ported yet (ROADMAP.md section 1, "
-            "item 'Multi-GPU')"
-        )
-    device = resolve_device(args.device)
+    if args.mesh_data <= 0 or args.mesh_model <= 0:
+        raise ValueError("--mesh-data and --mesh-model must be positive")
+    if args.batch_size % args.mesh_data:
+        raise ValueError("Global batch size must divide evenly across the data axis "
+                         f"(-b {args.batch_size}, --mesh-data {args.mesh_data}).")
+    if args.resume_training and not args.output_dir:
+        raise ValueError("Cannot resume training; output directory not provided.")
+    backend = args.dist_backend or mesh_ops.default_backend(args.device)
+    n_ranks = args.mesh_data * args.mesh_model
+    if args.distributed:
+        info = mesh_ops.initialize_distributed(args.coordinator_address, args.num_processes,
+                                               args.process_id, backend, args.device)
+        try:
+            world = info["process_count"]
+            devices = None if backend == "nccl" else [args.device] * world
+            mesh = mesh_ops.make_mesh(args.mesh_data if n_ranks > 1 else None, args.mesh_model,
+                                      devices)
+            if args.batch_size % mesh.shape["data"]:
+                raise ValueError("Global batch size must divide evenly across the data axis.")
+            print(f"torch.distributed: process {info['process_index']}/{world} on {mesh.device} "
+                  f"({backend})")
+            if not args.random_seed and not args.resume_training:
+                seed = [random.randint(0, 999999)]
+                torch.distributed.broadcast_object_list(seed, src=0)
+                args.random_seed = seed[0]
+            return _train_on_rank(args, mesh)
+        finally:
+            torch.distributed.destroy_process_group()
+    if args.coordinator_address or args.num_processes or args.process_id is not None:
+        raise ValueError("--coordinator-address, --num-processes and --process-id need --distributed")
+    if n_ranks == 1:
+        return _train(args, None)
+    if not args.random_seed and not args.resume_training:
+        args.random_seed = random.randint(0, 999999)  # one seed for every rank
+    devices = mesh_ops.rank_devices(n_ranks, args.device, backend)
+    return mesh_ops.spawn_local_ranks(_spawned_rank, n_ranks, backend, devices, args, devices)
+
+
+def _spawned_rank(rank, args, devices):
+    mesh = mesh_ops.make_mesh(args.mesh_data, args.mesh_model, devices)
+    _train_on_rank(args, mesh)
+    return {"rank": rank, "launches": kernel_launches()}
+
+
+def _train_on_rank(args, mesh):
+    """:func:`_train` on this rank of ``mesh``; ranks other than 0 print
+    nothing."""
+    if mesh.rank == 0:
+        return _train(args, mesh)
+    with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):
+        return _train(args, mesh)
+
+
+def _train(args, mesh):
+    rank0 = mesh is None or mesh.rank == 0
+    device = resolve_device(args.device) if mesh is None else mesh.device
     validation_data_fraction = 1.0 - args.training_data_fraction
 
-    if args.output_dir:
-        save_results = True
-        if not args.resume_training:
-            if os.path.exists(args.output_dir) and not args.force_overwrite:
-                raise FileExistsError(f'Specified directory "{args.output_dir}" already exists.')
-            os.makedirs(args.output_dir, exist_ok=True)
-    else:
-        if args.resume_training:
-            raise ValueError("Cannot resume training; output directory not provided.")
-        save_results = False
+    # Only rank 0 writes (dream_tpu: process 0); the others compute the
+    # same snapshots, since gathering split parameters takes every rank.
+    save_results = bool(args.output_dir) and rank0
+    if save_results and not args.resume_training:
+        if os.path.exists(args.output_dir) and not args.force_overwrite:
+            raise FileExistsError(f'Specified directory "{args.output_dir}" already exists.')
+        os.makedirs(args.output_dir, exist_ok=True)
 
     training_start_time = time.time()
 
@@ -169,7 +226,10 @@ def train_network(args):
         if os.path.exists(log_path):
             with open(log_path, "rb") as f:
                 train_log = pickle.load(f)
-            os.rename(log_path, epoch_log_path)
+            if mesh is not None:
+                torch.distributed.barrier()  # every rank has read it
+            if rank0:
+                os.rename(log_path, epoch_log_path)
         elif os.path.exists(epoch_log_path):
             with open(epoch_log_path, "rb") as f:
                 train_log = pickle.load(f)
@@ -262,8 +322,9 @@ def train_network(args):
             "platform": {
                 "user": user,
                 "hostname": socket.gethostname(),
-                "mesh": {"data": args.mesh_data, "model": args.mesh_model},
-                "n_devices": torch.cuda.device_count() if device.type == "cuda" else 1,
+                "mesh": dict(mesh.shape) if mesh is not None else {"data": 1, "model": 1},
+                "n_devices": (mesh.world_size if mesh is not None
+                              else torch.cuda.device_count() if device.type == "cuda" else 1),
                 "backend": device.type,
             },
             "results": {"epochs_trained": 0},
@@ -321,13 +382,27 @@ def train_network(args):
     )
     train_idx, valid_idx = dream_data.split_indices(len(dataset), args.training_data_fraction,
                                                     random_seed)
+    batch_size = args.batch_size
+    local = mesh is not None and mesh.shape["data"] > 1
+    if local:
+        # Each data rank loads a disjoint, equal part of the split and its
+        # b / D frames of each global batch, as each process of dream_tpu
+        # does (scripts/train_network.py:406-417); the ranks of a model
+        # group share theirs.
+        n_data, part = mesh.shape["data"], mesh.data_index
+
+        def partition(idx):
+            return idx[:len(idx) // n_data * n_data][part::n_data]
+
+        train_idx, valid_idx = partition(train_idx), partition(valid_idx)
+        batch_size //= n_data
     if args.cache_device:
         def make_loader(**kwargs):
-            return dream_data.DeviceCachedLoader(dataset, args.batch_size, seed=random_seed,
+            return dream_data.DeviceCachedLoader(dataset, batch_size, seed=random_seed,
                                                  device=device, **kwargs)
     else:
         def make_loader(**kwargs):
-            return dream_data.DataLoader(dataset, args.batch_size, seed=random_seed, **kwargs)
+            return dream_data.DataLoader(dataset, batch_size, seed=random_seed, **kwargs)
     train_loader = make_loader(shuffle=True, indices=train_idx)
     valid_loader = make_loader(shuffle=False, indices=valid_idx, drop_last=False)
 
@@ -347,6 +422,13 @@ def train_network(args):
                     e.copy_(ema[name])
                 print("Restored EMA parameters.")
         print(f"Parameter EMA enabled (decay {args.ema_decay}).")
+    if mesh is not None:
+        dream_network.shard_for_mesh(mesh)
+        print(f"Training on mesh {mesh.shape} ({mesh.backend}, this rank on {mesh.device})")
+
+    def snapshot(state=None):
+        """The state whole, as a host-bound flax tree (collective on a mesh)."""
+        return state_to_flax(dream_network.full_state(state))
 
     generator = torch.Generator(device=device).manual_seed(random_seed)
     writer = AsyncCheckpointWriter()
@@ -360,7 +442,7 @@ def train_network(args):
             print(f"Epoch {this_epoch} ------------")
             # A trace of the run's second epoch, the first in steady state.
             profiler = None
-            if args.profile_dir and e == start_epoch + 1:
+            if args.profile_dir and e == start_epoch + 1 and rank0:
                 profiler = torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU,
                     *([torch.profiler.ProfilerActivity.CUDA] if device.type == "cuda" else [])])
@@ -370,7 +452,8 @@ def train_network(args):
             if args.cache_device:
                 index_matrix = train_loader.epoch_index_matrix(e)
                 losses_t = dream_network.train_epoch_raw(
-                    generator, train_loader.device_images, train_loader.device_kp_projs, index_matrix)
+                    generator, train_loader.device_images, train_loader.device_kp_projs, index_matrix,
+                    local)
                 training_batch_sample_names = [dataset.sample_names(train_loader.indices[sel])
                                                for sel in index_matrix]
             else:
@@ -378,7 +461,7 @@ def train_network(args):
                 for batch_idx, host_batch in enumerate(train_loader):
                     loss = dream_network.train_raw(
                         generator, torch.as_tensor(host_batch["image_rgb_raw"]).to(device),
-                        torch.as_tensor(host_batch["keypoint_projections_raw"]).to(device))
+                        torch.as_tensor(host_batch["keypoint_projections_raw"]).to(device), local)
                     # The loss stays on the device; one transfer an epoch.
                     step_losses.append(loss)
                     training_batch_sample_names.append(dataset.sample_names(host_batch["indices"]))
@@ -401,15 +484,20 @@ def train_network(args):
                         None, torch.as_tensor(host_batch["image_rgb_raw"]).to(device),
                         torch.as_tensor(host_batch["keypoint_projections_raw"]).to(device))
                     heads, target = [batch["image_rgb_input"]], batch["belief_maps"]
-                    vlosses.append(dream_network.loss(heads, target))
+                    vlosses.append(dream_network.loss(heads, target, local=local))
                     if ema_vars is not None:
-                        ema_losses.append(dream_network.loss(heads, target, variables=ema_vars))
+                        ema_losses.append(dream_network.loss(heads, target, ema_vars, local))
                     valid_batch_sample_names.append(dataset.sample_names(host_batch["indices"]))
                 valid_batch_losses = [float(x) for x in vlosses]
                 mean_valid_loss = float(np.mean(valid_batch_losses))
                 std_valid_loss = float(np.std(valid_batch_losses))
                 if ema_losses:
                     mean_ema_valid_loss = float(np.mean([float(x) for x in ema_losses]))
+                if mesh is not None:
+                    # Rank 0's numbers on every rank, so that all take the same
+                    # checkpoint decisions (a snapshot gathers from every rank).
+                    mean_valid_loss, mean_ema_valid_loss = (float(v) for v in mesh_ops.broadcast_value(
+                        torch.tensor([mean_valid_loss, mean_ema_valid_loss], device=device), mesh))
             else:
                 mean_valid_loss = std_valid_loss = float("nan")
 
@@ -427,19 +515,21 @@ def train_network(args):
             if run_validation and mean_valid_loss < best_valid_loss:
                 print("Best network result so far.")
                 best_valid_loss = mean_valid_loss
-                if save_results:
-                    writer.submit(_write_checkpoint, args.output_dir, "best_network",
-                                  copy.deepcopy(dream_network.network_config),
-                                  state_to_flax(dream_network.model.state_dict()))
+                if args.output_dir:
+                    best = snapshot()
+                    if save_results:
+                        writer.submit(_write_checkpoint, args.output_dir, "best_network",
+                                      copy.deepcopy(dream_network.network_config), best)
             if run_validation and args.ema_decay is not None:
                 print(f"EMA Validation Loss (batch-wise mean): {mean_ema_valid_loss}")
                 if mean_ema_valid_loss < best_ema_valid_loss:
                     print("Best EMA network result so far.")
                     best_ema_valid_loss = mean_ema_valid_loss
-                    if save_results:
-                        writer.submit(_write_checkpoint, args.output_dir, "best_network_ema",
-                                      copy.deepcopy(dream_network.network_config),
-                                      state_to_flax(dream_network.ema_variables()))
+                    if args.output_dir:
+                        best = snapshot(dream_network.ema_variables())
+                        if save_results:
+                            writer.submit(_write_checkpoint, args.output_dir, "best_network_ema",
+                                          copy.deepcopy(dream_network.network_config), best)
 
             if profiler is not None:
                 profiler.stop()
@@ -469,14 +559,16 @@ def train_network(args):
                 last_log = os.path.join(args.output_dir, f"training_log_e{e}.pkl")
                 if os.path.exists(last_log):
                     os.remove(last_log)
-                if this_epoch % args.checkpoint_every == 0 or this_epoch == args.epochs:
+            if args.output_dir and (this_epoch % args.checkpoint_every == 0
+                                    or this_epoch == args.epochs):
+                trees = (snapshot(), dream_network.optimizer_state(),
+                         snapshot(dream_network.ema_variables()) if args.ema_decay is not None
+                         else None)
+                if save_results:
                     writer.submit(
                         _write_checkpoint, args.output_dir, f"epoch_{this_epoch}",
-                        copy.deepcopy(dream_network.network_config),
-                        state_to_flax(dream_network.model.state_dict()),
-                        dream_network.optimizer_state(), this_epoch,
-                        state_to_flax(dream_network.ema_variables())
-                        if args.ema_decay is not None else None,
+                        copy.deepcopy(dream_network.network_config), trees[0], trees[1],
+                        this_epoch, trees[2],
                     )
     finally:
         writer.close()
@@ -504,15 +596,20 @@ def make_parser() -> argparse.ArgumentParser:
     parser.add_argument("-not-a", "--not-augment-data", action="store_true", default=False)
     parser.add_argument("-w", "--num-workers", type=int, default=8, help="Host image-decode threads.")
     parser.add_argument("--mesh-data", type=int, default=1,
-                        help="Data-parallel axis size; above 1 waits for the multi-GPU slice.")
+                        help="Data-parallel axis size: ranks that split each global batch.")
     parser.add_argument("--mesh-model", type=int, default=1,
-                        help="Model-parallel axis size; above 1 waits for the multi-GPU slice.")
+                        help="Model-parallel axis size: ranks that split the wide convs' "
+                             "output channels.")
     parser.add_argument("--distributed", action="store_true", default=False,
-                        help="Multi-process training; waits for the multi-GPU slice.")
+                        help="One rank a process, joined through --coordinator-address "
+                             "(else MASTER_ADDR/MASTER_PORT/WORLD_SIZE/RANK).")
     parser.add_argument("--coordinator-address", default=None,
-                        help="host:port of process 0 (multi-GPU slice).")
+                        help="host:port of process 0.")
     parser.add_argument("--num-processes", type=int, default=None)
     parser.add_argument("--process-id", type=int, default=None)
+    parser.add_argument("--dist-backend", choices=mesh_ops.BACKENDS, default=None,
+                        help="Process-group backend: nccl (one GPU a rank; the default for "
+                             "CUDA) or gloo (the CPU, or ranks sharing one card).")
     parser.add_argument("--init-params", default=None,
                         help="Warm-start parameters from a .msgpack checkpoint (fresh optimizer; "
                              "unlike --resume-training).")

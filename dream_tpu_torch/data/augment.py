@@ -19,7 +19,7 @@ CUDA images.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -139,13 +139,24 @@ def apply_augment(images: torch.Tensor, keypoints: torch.Tensor, params: Augment
 
 
 def augment_batch(generator: torch.Generator, images: torch.Tensor, keypoints: torch.Tensor,
-                  cfg: AugmentConfig = DEFAULT_AUGMENT, warp_backend: str = "auto"
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+                  cfg: AugmentConfig = DEFAULT_AUGMENT, warp_backend: str = "auto",
+                  shard: Optional[Tuple[int, int]] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sample parameters and noise from ``generator`` (on the images'
-    device) and apply them: the port of ``augment.augment_batch``."""
+    device) and apply them: the port of ``augment.augment_batch``.
+
+    With ``shard = (i, n_shards)`` the images are part ``i`` of a global
+    batch of ``n_shards`` equal parts: the global batch's parameters and
+    noise are drawn and this part's rows of them applied, so the parts of a
+    data-parallel step are augmented as the whole batch would be."""
     if generator.device.type != images.device.type:
         raise ValueError(f"generator on {generator.device}, images on {images.device}")
     n, h, w = images.shape[0], images.shape[1], images.shape[2]
-    params = sample_augment_params(generator, n, h, w, cfg)
-    noise = torch.randn(images.shape, generator=generator, device=images.device)
+    index, n_shards = shard if shard is not None else (0, 1)
+    params = sample_augment_params(generator, n * n_shards, h, w, cfg)
+    noise = torch.randn((n * n_shards,) + tuple(images.shape[1:]), generator=generator,
+                        device=images.device)
+    if n_shards > 1:
+        rows = slice(index * n, (index + 1) * n)
+        params = AugmentParams(*(field[rows] for field in params))
+        noise = noise[rows]
     return apply_augment(images, keypoints, params, noise, warp_backend)

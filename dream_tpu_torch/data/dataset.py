@@ -353,6 +353,8 @@ def make_batch_processor(
     ``include_belief_maps`` is false, ``belief_maps [B, n_kp, h, w]``.
     The work runs on the raw images' device; ``generator`` (on that device)
     drives the augmentation and is not read when ``augment`` is false.
+    ``shard = (i, n)`` marks the frames as part ``i`` of ``n`` of a global
+    batch, augmented as that batch would be (:func:`augment_batch`).
     ``warp_backend`` is passed to :func:`augment_batch`.
     """
     to_netin = coord_ops.affine_netin_from_raw(
@@ -363,14 +365,15 @@ def make_batch_processor(
     )
 
     def process(generator: Optional[torch.Generator], image_rgb_raw: torch.Tensor,
-                kp_projs_raw: torch.Tensor) -> Dict[str, torch.Tensor]:
+                kp_projs_raw: torch.Tensor,
+                shard: Optional[Tuple[int, int]] = None) -> Dict[str, torch.Tensor]:
         images = preprocess_images(
             image_rgb_raw, network_input_resolution, image_preprocessing
         )  # float32, 0-255 scale
         kp_netin = to_netin(kp_projs_raw.to(images.device, torch.float32))
         if augment:
             images, kp_netin = augment_batch(
-                generator, images, kp_netin, augment_config, warp_backend
+                generator, images, kp_netin, augment_config, warp_backend, shard
             )
         if image_normalization:
             net_input = normalize_images(

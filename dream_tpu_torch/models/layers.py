@@ -119,22 +119,29 @@ class _BatchStatsNorm(torch.autograd.Function):
     ``(y in dtype, batch mean, biased batch variance)``."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, dtype):
+    def forward(ctx, x, weight, bias, dtype, mesh=None):
         count = x.numel() // x.shape[1]
         # E[x] and E[x^2] of x in float32, as flax: the variance below
         # cancels their leading digits, so E[x^2] takes no shortcut (the
         # square of a fused vector norm lost enough digits to quadruple a
         # ResNet gradient's error against a float64 one).
         x32 = x.to(torch.float32)
-        mean = _channel_sum(x32) / count
-        mean2 = _channel_sum(x32.square()) / count
+        sum1, sum2 = _channel_sum(x32), _channel_sum(x32.square())
         del x32
+        if mesh is not None:
+            # The global batch's statistics: the data ranks' sums (their
+            # rows are equal in number).
+            sum1, sum2 = _data_group_sums(sum1, sum2, mesh)
+            count *= mesh.shape["data"]
+        mean = sum1 / count
+        mean2 = sum2 / count
         var = torch.clamp_min(mean2 - mean.square(), 0.0)
         rstd = torch.rsqrt(var + BN_EPSILON)
         scale = rstd * weight
         y = _channel_affine(x, scale, bias - mean * scale, dtype)
         ctx.save_for_backward(x, weight, mean, rstd)
         ctx.mark_non_differentiable(mean, var)
+        ctx.mesh = mesh
         return y, mean, var
 
     @staticmethod
@@ -145,11 +152,28 @@ class _BatchStatsNorm(torch.autograd.Function):
         x_hat = torch.sub(x, mean[:, None, None]).mul_(rstd[:, None, None])
         grad_bias = _channel_sum(g)
         grad_weight = _channel_sum(g * x_hat)
+        sum_g, sum_gx = grad_bias, grad_weight
+        if ctx.mesh is not None:
+            # The means below are over the global batch.  The parameters'
+            # gradients stay this rank's sums: the data-group average of
+            # the gradients makes them global.
+            sum_g, sum_gx = _data_group_sums(grad_bias, grad_weight, ctx.mesh)
+            count *= ctx.mesh.shape["data"]
         # grad_x = (g - mean(g) - x_hat * mean(g * x_hat)) * weight * rstd
-        rest = torch.addcmul((-grad_bias / count)[:, None, None], x_hat,
-                             (-grad_weight / count)[:, None, None], out=x_hat).add_(g)
+        rest = torch.addcmul((-sum_g / count)[:, None, None], x_hat,
+                             (-sum_gx / count)[:, None, None], out=x_hat).add_(g)
         grad_x = torch.mul(rest, (weight * rstd)[:, None, None], out=torch.empty_like(x))
-        return grad_x, grad_weight, grad_bias, None
+        return grad_x, grad_weight, grad_bias, None, None
+
+
+def _data_group_sums(a: torch.Tensor, b: torch.Tensor, mesh):
+    """``a`` and ``b`` (per-channel float32) summed over the mesh's data
+    group, in one all-reduce."""
+    import torch.distributed as dist
+
+    both = torch.stack([a, b])
+    dist.all_reduce(both, group=mesh.data_group)
+    return both[0], both[1]
 
 
 class BatchNorm2d(nn.Module):
@@ -173,6 +197,9 @@ class BatchNorm2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        # The mesh whose data group shares the batch statistics
+        # (``parallel.mesh``); None normalises over this process's batch.
+        self.mesh = None
 
     def reset_parameters(self) -> None:
         """flax's initial values: scale 1, bias 0, running mean 0, variance 1."""
@@ -184,7 +211,8 @@ class BatchNorm2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            y, mean, var = _BatchStatsNorm.apply(x, self.weight, self.bias, self.compute_dtype)
+            y, mean, var = _BatchStatsNorm.apply(x, self.weight, self.bias, self.compute_dtype,
+                                                 self.mesh)
             with torch.no_grad():
                 self.running_mean.copy_(BN_MOMENTUM * self.running_mean + (1 - BN_MOMENTUM) * mean)
                 self.running_var.copy_(BN_MOMENTUM * self.running_var + (1 - BN_MOMENTUM) * var)

@@ -25,6 +25,13 @@ the CUDA warp kernel and the int8 chain's convs in the CUDA int8 conv
 kernel for CUDA tensors, and in their plain torch versions for CPU
 tensors, chosen by the tensor's device.
 
+Training runs on one device or, after ``shard_for_mesh`` (``:471-510``),
+on a ``(data, model)`` mesh of ranks (:mod:`dream_tpu_torch.parallel`):
+each rank steps on its rows of the global batch, with the loss, gradients
+and BatchNorm statistics of the whole batch, and the wide convs split over
+the model axis.  The multistage cascade can run its inference as a GPipe
+pipeline over devices (``enable_pipeline_inference``, ``:750-798``).
+
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU; without CUDA they raise instead of falling back.
 """
@@ -56,11 +63,13 @@ from dream_tpu_torch.models import (
     fold_batchnorm_resnet,
 )
 from dream_tpu_torch.models import quant as quant_ops
+from dream_tpu_torch.models.layers import BatchNorm2d
 from dream_tpu_torch.models import vgg_int8_deploy
 from dream_tpu_torch.models.pretrain import graft_encoder_params
 from dream_tpu_torch.ops import belief_maps as bm_ops
 from dream_tpu_torch.ops import coords as coord_ops
 from dream_tpu_torch.ops import image_proc as image_proc_ops
+from dream_tpu_torch.parallel import mesh as mesh_ops
 from dream_tpu_torch.utils import resolutions as res_utils
 from dream_tpu_torch.utils.config import load_yaml, save_yaml
 
@@ -97,6 +106,13 @@ def resolve_device(device: Any) -> torch.device:
     return dev
 
 
+def _indexed(device: torch.device) -> torch.device:
+    """``cuda`` as the current CUDA device's index."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def create_network_from_config_file(
     config_file_path: str, network_params_path: Optional[str] = None,
     device: Any = "cuda",
@@ -119,14 +135,51 @@ def create_network_from_config_data(network_config_data: Dict[str, Any],
     return DreamNetwork(network_config_data, device=device)
 
 
+def _count(pred: torch.Tensor) -> torch.Tensor:
+    """The number of elements of ``pred``, as a 0-d tensor on its device
+    (filled there: no host-to-device copy)."""
+    return pred.new_full((), float(pred.numel()), dtype=torch.float32)
+
+
+def _mse_terms(pred: torch.Tensor, target: torch.Tensor):
+    return torch.sum((pred - target) ** 2), _count(pred)
+
+
+def _huber_terms(pred: torch.Tensor, target: torch.Tensor):
+    d = torch.abs(pred - target)
+    return torch.sum(torch.where(d < 1.0, 0.5 * d * d, d - 0.5)), _count(pred)
+
+
+def _weighted_mse_terms(pos_weight: float, symmetric: bool = False) -> Callable:
+    """The weighted MSE's (numerator, denominator): ``sum(w * d^2)`` and
+    ``sum(w)``, the weights taking no gradient."""
+
+    def terms(pred: torch.Tensor, target: torch.Tensor):
+        t = torch.clamp(target, 0.0, 1.0)
+        if symmetric:
+            p = torch.clamp(pred.detach().to(torch.float32), 0.0, 1.0)
+            t = torch.maximum(t, p)
+        w = 1.0 + (pos_weight - 1.0) * t
+        return torch.sum(w * (pred - target) ** 2), torch.sum(w).detach()
+
+    return terms
+
+
+def _ratio(terms: Callable) -> Callable:
+    def criterion(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        num, den = terms(pred, target)
+        return num / den
+
+    return criterion
+
+
 def mse_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-    return torch.mean((pred - target) ** 2)
+    return _ratio(_mse_terms)(pred, target)
 
 
 def huber_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """torch SmoothL1Loss (beta=1) semantics."""
-    d = torch.abs(pred - target)
-    return torch.mean(torch.where(d < 1.0, 0.5 * d * d, d - 0.5))
+    return _ratio(_huber_terms)(pred, target)
 
 
 def weighted_mse_loss(pos_weight: float, symmetric: bool = False) -> Callable:
@@ -134,31 +187,32 @@ def weighted_mse_loss(pos_weight: float, symmetric: bool = False) -> Callable:
     their sum, where ``t`` is the target clipped to [0, 1] or, when
     ``symmetric``, ``max(t, clip(pred, 0, 1))`` with no gradient through the
     prediction's weight (``dream_tpu/network.py:78-118``)."""
+    return _ratio(_weighted_mse_terms(pos_weight, symmetric))
 
-    def criterion(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-        t = torch.clamp(target, 0.0, 1.0)
-        if symmetric:
-            p = torch.clamp(pred.detach().to(torch.float32), 0.0, 1.0)
-            t = torch.maximum(t, p)
-        w = 1.0 + (pos_weight - 1.0) * t
-        return torch.sum(w * (pred - target) ** 2) / torch.sum(w)
 
-    return criterion
+def loss_terms_from_config(loss_config: Optional[Dict[str, Any]]) -> Callable:
+    """``terms(pred, target) -> (numerator, denominator)`` of the criterion
+    ``architecture.loss`` names (mse when None): the criterion is their
+    ratio, and their sums over any split of the batch give it whole (the
+    weighted MSE's normaliser is the sum of its weights, not a mean of
+    per-part ratios, ``dream_tpu/parallel/pipeline.py:121-150``).  The
+    denominator takes no gradient."""
+    loss_type = loss_config["type"] if loss_config else "mse"
+    if loss_type == "mse":
+        return _mse_terms
+    if loss_type == "huber":
+        return _huber_terms
+    if loss_type == "weighted_mse":
+        return _weighted_mse_terms(float(loss_config.get("pos_weight", 100.0)),
+                                   bool(loss_config.get("symmetric", False)))
+    raise NotImplementedError(f'Loss "{loss_type}" not yet implemented.')
 
 
 def criterion_from_config(loss_config: Dict[str, Any]) -> Callable:
-    """The criterion named by ``architecture.loss`` (``network.py:299-309``)."""
-    loss_type = loss_config["type"]
-    if loss_type == "mse":
-        return mse_loss
-    if loss_type == "huber":
-        return huber_loss
-    if loss_type == "weighted_mse":
-        return weighted_mse_loss(
-            float(loss_config.get("pos_weight", 100.0)),
-            symmetric=bool(loss_config.get("symmetric", False)),
-        )
-    raise NotImplementedError(f'Loss "{loss_type}" not yet implemented.')
+    """The criterion named by ``architecture.loss`` (``network.py:299-309``):
+    the ratio of :func:`loss_terms_from_config`'s terms."""
+    named = {"mse": mse_loss, "huber": huber_loss}
+    return named.get(loss_config["type"]) or _ratio(loss_terms_from_config(loss_config))
 
 
 def warmup_cosine_decay(step: int, peak_value: float, warmup_steps: int, decay_steps: int,
@@ -176,13 +230,23 @@ def warmup_cosine_decay(step: int, peak_value: float, warmup_steps: int, decay_s
     return peak_value * ((1 - alpha) * cosine + alpha)
 
 
-def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float,
+                         split: Optional[Sequence[bool]] = None, mesh=None) -> torch.Tensor:
     """Clip in place as ``optax.clip_by_global_norm``: with ``norm`` the
     global L2 norm, every ``g`` becomes ``(g / norm) * max_norm`` when
     ``norm >= max_norm`` and stays otherwise (``clip_grad_norm_`` divides by
     ``norm + 1e-6`` instead).  Selected on the device, with no host sync;
-    returns the norm."""
-    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    returns the norm.  Where ``split`` marks the gradients of channel-split
+    parameters, their squares are summed over ``mesh``'s model group
+    first: each rank holds a part of them."""
+    if split is not None and any(split):
+        from dream_tpu_torch.parallel.mesh import sum_over_model_group
+
+        pieces = sum(torch.sum(g * g) for g, s in zip(grads, split) if s)
+        whole = sum(torch.sum(g * g) for g, s in zip(grads, split) if not s)
+        norm = torch.sqrt(whole + sum_over_model_group(pieces, mesh))
+    else:
+        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, (g / norm) * max_norm))
@@ -280,6 +344,7 @@ class DreamNetwork:
             self._arch_kwargs = {"full": resnet_kwargs.get("full", False)}
         self.model = model.to(self.device).eval()
         self.criterion = criterion_from_config(arch["loss"])
+        self._loss_terms = loss_terms_from_config(arch["loss"])
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.scheduler: Optional[torch.optim.lr_scheduler.LambdaLR] = None
         self._lr_factor: Optional[Callable[[int], float]] = None
@@ -293,6 +358,11 @@ class DreamNetwork:
         self.int8_impl: Optional[str] = None
         self.int8_chain: Optional[vgg_int8_deploy.Int8Chain] = None
         self.int8_model: Optional[torch.nn.Module] = None
+        # shard_for_mesh's mesh and split parameters; enable_pipeline_inference's
+        # pipelined forward.
+        self._mesh = None
+        self._split: Dict[str, int] = {}
+        self._pipeline: Optional[Callable] = None
 
         cfg = network_config["training"]["config"]
         out_res = list(self.net_output_resolution_from_input_resolution(
@@ -381,16 +451,20 @@ class DreamNetwork:
         """Write the variables as ``dream_tpu``'s ``save_network_params``
         does: flax msgpack of ``{"params"}``, plus ``{"batch_stats"}`` for a
         ResNet, float32, HWIO."""
+        state = self.full_state()  # collective on a mesh: every rank calls
+        if self._mesh is not None and self._mesh.rank != 0:
+            return
         if not overwrite and os.path.exists(network_params_path):
             raise FileExistsError(f'Output file already exists in "{network_params_path}".')
-        save_flax_checkpoint(network_params_path, state_to_flax(self.model.state_dict()))
+        save_flax_checkpoint(network_params_path, state_to_flax(state))
 
     def save_network(self, output_dir: str, output_filename_without_extension: str,
                      overwrite: bool = False) -> None:
         """``<stem>.yaml`` sidecar plus ``<stem>.msgpack`` weights in ``output_dir``."""
-        os.makedirs(output_dir, exist_ok=True)
         stem = os.path.join(output_dir, output_filename_without_extension)
-        self.save_network_config(stem + ".yaml", overwrite)
+        if self._mesh is None or self._mesh.rank == 0:
+            os.makedirs(output_dir, exist_ok=True)
+            self.save_network_config(stem + ".yaml", overwrite)
         self.save_network_params(stem + ".msgpack", overwrite)
 
     # --- training (reference dream/network.py:328-364, 634-696) ---
@@ -437,7 +511,8 @@ class DreamNetwork:
         if self.optimizer is None:
             raise RuntimeError("Optimizer must be defined. Use enable_training() first.")
         return optimizer_state_to_flax(self.network_config["training"]["config"]["optimizer"],
-                                       self.model.named_parameters(), self.optimizer, self.steps)
+                                       self.model.named_parameters(), self.optimizer, self.steps,
+                                       whole=self._whole)
 
     def load_optimizer_state(self, tree: Dict[str, Any]) -> None:
         """Resume from an optax state tree: Adam's moments, the step count
@@ -492,29 +567,52 @@ class DreamNetwork:
             out = torch.func.functional_call(self.model, variables, (x,))
         return out if isinstance(out, list) else [out]
 
-    def _forward_loss(self, net_input: torch.Tensor, target: torch.Tensor,
-                      variables: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
-        """The criterion over the stacked stage outputs against the broadcast
-        target, accumulated in float32 (``dream_tpu/network.py:373-392``).
-        The soft-argmax head is not trained, as in ``dream_tpu``
-        (``:380-382``)."""
+    def _forward_terms(self, net_input: torch.Tensor, target: torch.Tensor,
+                       variables: Optional[Dict[str, torch.Tensor]] = None):
+        """The criterion's (numerator, denominator) over the stacked stage
+        outputs against the broadcast target, accumulated in float32 (float64
+        for a float64 model) (``dream_tpu/network.py:373-392``).  The soft-argmax head is not
+        trained, as in ``dream_tpu`` (``:380-382``)."""
         if self.soft_argmax_head:
             raise NotImplementedError("training and the loss take the belief-map head alone "
                                       '(output_heads ["belief_maps"])')
-        stacked = torch.stack(self._stage_outputs(net_input, variables)).to(torch.float32)
-        target = target.to(self.device, torch.float32)
-        return self.criterion(stacked, target.expand_as(stacked))
+        stacked = torch.stack(self._stage_outputs(net_input, variables))
+        stacked = stacked.to(torch.promote_types(stacked.dtype, torch.float32))
+        target = target.to(self.device, stacked.dtype)
+        return self._loss_terms(stacked, target.expand_as(stacked))
+
+    def _data_mesh(self):
+        """The mesh when it has a data group to share the batch over, else None."""
+        if self._mesh is not None and self._mesh.data_group is not None:
+            return self._mesh
+        return None
+
+    def _local_rows(self, local: bool, *arrays):
+        """This rank's rows of global batches; ``local`` says they are already."""
+        if self._mesh is None or local:
+            return arrays
+        return tuple(mesh_ops.process_local_batch(self._mesh, a) for a in arrays)
 
     def _step(self, net_input: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
         if self.optimizer is None:
             raise RuntimeError("Optimizer must be defined. Use enable_training() first.")
         self.model.train()
-        loss = self._forward_loss(net_input, target)
+        num, den = self._forward_terms(net_input, target)
+        mesh = self._data_mesh()
+        if mesh is None:
+            loss = objective = num / den
+        else:
+            # The loss over the global batch, whose rows the data ranks share.
+            objective, loss = mesh_ops.global_loss(num, den, mesh)
         self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        params = [p for p in self.model.parameters() if p.grad is not None]
+        objective.backward()
+        named = [(n, p) for n, p in self.model.named_parameters() if p.grad is not None]
+        params = [p for _, p in named]
+        if mesh is not None:
+            mesh_ops.reduce_gradients(params, mesh)
         if self._clip_norm is not None:
-            clip_by_global_norm_([p.grad for p in params], self._clip_norm)
+            clip_by_global_norm_([p.grad for p in params], self._clip_norm,
+                                 [n in self._split for n, _ in named], self._mesh)
         self.optimizer.step()
         self.steps += 1
         if self.scheduler is not None:
@@ -527,47 +625,121 @@ class DreamNetwork:
         self.model.eval()
         return loss.detach()
 
-    def train(self, network_input_heads: Sequence[torch.Tensor], target: torch.Tensor) -> torch.Tensor:
+    def train(self, network_input_heads: Sequence[torch.Tensor], target: torch.Tensor,
+              local: bool = False) -> torch.Tensor:
         """One optimization step: ``network_input_heads[0]`` is the NHWC net
         input, ``target`` the ``[B, n_kp, h, w]`` belief maps.  BatchNorm
         normalises with the batch's statistics and moves its running ones.
         Returns the loss before the step as a 0-d tensor on the device (no
-        host sync)."""
-        return self._step(network_input_heads[0], target)
+        host sync).  On a mesh the arrays are the global batch, or with
+        ``local`` this rank's rows of it (a loader that gives each data rank
+        its own part of the set, as the training CLI's)."""
+        return self._step(*self._local_rows(local, network_input_heads[0], target))
 
     def train_raw(self, generator: Optional[torch.Generator], raw_images: torch.Tensor,
-                  kp_projs_raw: torch.Tensor) -> torch.Tensor:
+                  kp_projs_raw: torch.Tensor, local: bool = False) -> torch.Tensor:
         """One step from raw uint8 ``[B, H, W, 3]`` frames and their raw-frame
         key points: the batch processor (``generator``, on the device, drives
         its augmentation), then forward, loss, backward, clip, optimizer,
-        schedule and EMA."""
+        schedule and EMA.  ``local`` as in :meth:`train`."""
         if self._batch_processor is None:
             raise RuntimeError("Call enable_fused_training(batch_processor) first.")
-        batch = self._batch_processor(
-            generator, torch.as_tensor(raw_images).to(self.device),
-            torch.as_tensor(kp_projs_raw).to(self.device),
-        )
+        raw_images, kp_projs_raw = self._local_rows(
+            local, torch.as_tensor(raw_images), torch.as_tensor(kp_projs_raw))
+        # On a mesh the augmentation draws the global batch's parameters and
+        # applies this rank's rows of them (``augment_batch``'s shard).
+        shard = {} if self._mesh is None else {"shard": (self._mesh.data_index,
+                                                          self._mesh.shape["data"])}
+        batch = self._batch_processor(generator, raw_images.to(self.device),
+                                      kp_projs_raw.to(self.device), **shard)
         return self._step(batch["image_rgb_input"], batch["belief_maps"])
 
     def train_epoch_raw(self, generator: Optional[torch.Generator], images: torch.Tensor,
-                        kp_projs_raw: torch.Tensor, index_matrix) -> torch.Tensor:
+                        kp_projs_raw: torch.Tensor, index_matrix, local: bool = False
+                        ) -> torch.Tensor:
         """One epoch over a set held on the device: a :meth:`train_raw` step
         for each row of ``index_matrix`` (``[n_steps, batch]`` positions into
         ``images`` and ``kp_projs_raw``, e.g.
         ``DeviceCachedLoader.epoch_index_matrix``).  Returns the steps'
         losses ``[n_steps]`` on the device."""
         rows = torch.as_tensor(np.asarray(index_matrix), device=images.device)
-        losses = [self.train_raw(generator, images[row], kp_projs_raw[row]) for row in rows]
+        losses = [self.train_raw(generator, images[row], kp_projs_raw[row], local) for row in rows]
         return torch.stack(losses) if losses else torch.zeros(0, device=images.device)
 
     @torch.no_grad()
     def loss(self, network_input_heads: Sequence[torch.Tensor], target: torch.Tensor,
-             variables: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+             variables: Optional[Dict[str, torch.Tensor]] = None, local: bool = False
+             ) -> torch.Tensor:
         """Evaluation loss, no gradient, BatchNorm on its running statistics;
         ``variables`` (e.g. ``ema_variables()``) replaces the model's state
-        for this call only."""
+        for this call only.  On a mesh, the loss of the global batch
+        (``local`` as in :meth:`train`)."""
         self.model.eval()
-        return self._forward_loss(network_input_heads[0], target, variables)
+        net_input, target = self._local_rows(local, network_input_heads[0], target)
+        num, den = self._forward_terms(net_input, target, variables)
+        mesh = self._data_mesh()
+        return num / den if mesh is None else mesh_ops.global_loss(num, den, mesh)[1]
+
+    # --- meshes (dream_tpu/network.py:471-510, 750-798) ---
+
+    def shard_for_mesh(self, mesh) -> None:
+        """Train on a ``(data, model)`` mesh of ranks
+        (:func:`dream_tpu_torch.parallel.make_mesh`; every rank calls this,
+        after loading parameters and optimizer state).  The convs
+        :func:`~dream_tpu_torch.parallel.param_shardings` selects become
+        channel-split convs on the model group (their optimizer state and
+        EMA cut to match); :meth:`train_raw` and :meth:`train` take a global
+        batch and step on this rank's rows with the loss over the global
+        batch, the gradients averaged over the data group and BatchNorm's
+        statistics taken over it; checkpoints gather the shards, and rank 0
+        alone writes files.  The mesh's device must be the network's."""
+        if _indexed(mesh.device) != _indexed(self.device):
+            raise ValueError(f"the mesh puts this rank on {mesh.device}, the network is on "
+                             f"{self.device}")
+        if self.int8_impl is not None or self._pipeline is not None:
+            raise ValueError("shard the float network before enabling int8 or pipelined inference")
+        self._mesh = mesh
+        self._split = mesh_ops.shard_params(
+            self.model, mesh, self.optimizer,
+            [self.ema_params] if self.ema_params is not None else [])
+        if mesh.data_group is not None:
+            for module in self.model.modules():
+                if isinstance(module, BatchNorm2d):
+                    module.mesh = mesh
+
+    def _whole(self, name: str, tensor: torch.Tensor) -> torch.Tensor:
+        if name not in self._split:
+            return tensor
+        return mesh_ops.gather_full(tensor, self._split[name], self._mesh)
+
+    def full_state(self, state: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+        """``state`` (default the model's) whole, in a one-rank run's layout:
+        on a mesh with split convs, their shards gathered (collective: every
+        rank calls it)."""
+        state = self.model.state_dict() if state is None else state
+        if not self._split:
+            return state
+        return mesh_ops.gather_state(state, self._split, self._mesh)
+
+    def enable_pipeline_inference(self, n_microbatches: int = 4, mesh=None) -> List[torch.device]:
+        """Run the multistage cascade as a GPipe pipeline, one stage a device
+        of ``mesh`` (:func:`dream_tpu_torch.parallel.make_pipeline_mesh`;
+        default one stage a GPU), microbatches streaming from stage to stage
+        (:func:`~dream_tpu_torch.parallel.pipeline_multistage_inference`);
+        the peak decode (the score kernel on the card) takes the final
+        stage's maps on its device.  The pipeline holds the current
+        parameters.  The batch given to :meth:`inference` must divide by
+        ``n_microbatches``.  Returns the stage devices."""
+        from dream_tpu_torch.parallel.pipeline import pipeline_multistage_inference
+
+        if not isinstance(self.model, DreamHourglassMultiStage):
+            raise ValueError("Pipeline inference applies to the multistage cascade; got "
+                             f"{type(self.model).__name__}.")
+        if self.int8_impl is not None:
+            raise ValueError("the pipeline runs the float cascade; int8 inference is enabled")
+        fn, mesh = pipeline_multistage_inference(self.model, None, mesh, n_microbatches)
+        self._pipeline = fn
+        return mesh
 
     # --- int8 inference (reference dream/network.py:796-969) ---
 
@@ -603,6 +775,9 @@ class DreamNetwork:
         meanwhile and adds nothing to the amax.  Returns the amax by module
         path.
         """
+        if self._mesh is not None or self._pipeline is not None:
+            raise ValueError("int8 inference runs on one device, unsharded and unpipelined, as in "
+                             "dream_tpu")
         impl = int8_impl_from_env()
         chain_ok = self.architecture_type == "vgg" and vgg_int8_deploy.supports(self.model)
         if impl == "auto":
@@ -643,6 +818,8 @@ class DreamNetwork:
         :meth:`enable_int8_inference` has run."""
         chain, int8_model = self.int8_chain, self.int8_model  # another thread may set them
         x = network_input.to(self.device, torch.float32)
+        if self._pipeline is not None:
+            return self._pipeline(x), None
         if chain is not None:
             belief = vgg_int8_deploy.run_int8_chain(chain, x, self.compute_dtype)
             return belief.permute(0, 3, 1, 2).contiguous(), None

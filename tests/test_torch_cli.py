@@ -328,7 +328,7 @@ def test_train_cli_trains_resumes_and_writes_flax_state(env):
             == jax.tree_util.tree_structure(jax_net.opt_state))
     assert int(restored[1][0].count) == 9
 
-    # The evaluation CLI reads what the trainer wrote; flags still to come raise.
+    # The evaluation CLI reads what the trainer wrote.
     eval_args = eval_cli.make_parser().parse_args(
         ["-i", os.path.join(out, "best_network.msgpack"), "-d", env["eval_data"], "-o",
          str(env["root"] / "eval_cli"), "--no-visualization", "--no-pnp", "-b", "8",
@@ -365,8 +365,10 @@ def test_train_cli_trains_resumes_and_writes_flax_state(env):
         assert ours.shape == (RES[1], RES[0], 3)
         np.testing.assert_array_equal(
             ours, np.asarray(Image.open(ref_dir / f"{group}_samples.png").convert("RGB")), err_msg=group)
-    for extra in (["--mesh-data", "2"], ["--distributed"]):
-        with pytest.raises(NotImplementedError):
+    # The mesh flags refuse what cannot run, before any rank starts (a mesh
+    # run itself: tests/test_torch_parallel.py).
+    for extra, error in ((["--mesh-data", "3"], "divide"), (["--num-processes", "2"], "--distributed")):
+        with pytest.raises(ValueError, match=error):
             train_cli.train_network(train_cli.make_parser().parse_args(argv + ["-f"] + extra))
 
 
@@ -472,4 +474,5 @@ def test_train_cli_takes_the_jax_scripts_flags():
 
     ours, ref = flags(train_cli.make_parser()), flags(script.make_parser())
     assert ours.pop(("--device",)) == "cuda"
+    assert ours.pop(("--dist-backend",)) is None
     assert ours == ref

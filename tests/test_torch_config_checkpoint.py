@@ -233,7 +233,7 @@ def test_compute_dtype_is_the_one_that_runs(tmp_path):
 
 FORBIDDEN_IMPORTS = {
     "jax", "jaxlib", "flax", "optax", "dream_tpu", "yaml", "msgpack", "PIL", "cv2", "torchvision",
-    "matplotlib", "webcolors",
+    "matplotlib", "webcolors", "pandas",
 }
 PORT_SOURCES = sorted(
     glob.glob(os.path.join(ROOT, "dream_tpu_torch", "**", "*.py"), recursive=True)
