@@ -241,7 +241,14 @@ since the script started, `elapsed_s`):
    ms a frame at 1 and 8 threads, and the evaluation CLI with vgg-Q r5 bf16
    on it: 4 score launches, phase 18's PNG run's report as the reference
    under phase 13's bounds (out-of-frame found within 2; PnP at least
-   56/60), frames/s; (c) the 64 JPEG frames through the
+   56/60), frames/s; (b') a progressive copy (the same quality and
+   subsampling, libjpeg's 10-scan script, `--progressive`): each frame as
+   PIL decodes it and equal to (b)'s frame, ms a frame at 1 and 8 threads
+   beside (b)'s, the evaluation CLI on it: 4 score launches and
+   keypoints.csv equal line for line to (b)'s; after (c), 8 progressive
+   bodies posted to a server on phase 21's network: 8 score launches, each
+   request's detections equal to (c)'s for the same frame and within (c)'s
+   bounds of the progressive CLI run's rows; (c) the 64 JPEG frames through the
    client to a live bf16 server on phase 21's network: the score kernel
    once a request, found states as (b)'s keypoints.csv on all but 3
    keypoints (median 0.05 px), poses published within 1 of (b)'s PnP
@@ -2216,6 +2223,47 @@ def jpeg_and_tools_phase(kernels_of_port, reset_counts, smi, work, network):
         shutil.copyfile(os.path.join(jpeg_eval, "keypoints.csv"), os.path.join(keep, "keypoints_jpeg.csv"))
         shutil.copyfile(os.path.join(work["vggq_dir"], "keypoints.csv"), os.path.join(keep, "keypoints_png.csv"))
 
+    # (b') A progressive copy of the holdout (quality 90, 4:2:0, libjpeg's
+    # 10-scan script, written by PIL in a process of its own): each frame as
+    # PIL decodes it and equal to (b)'s baseline frame (PIL codes the same
+    # quantized coefficients both ways, and a complete file is not
+    # smoothed), and the evaluation CLI's keypoints.csv equal to (b)'s.
+    prog_dir = os.path.join(tmp, "hold64_jpg_progressive")
+    prog_npy = os.path.join(tmp, "pil_decoded_progressive.npy")
+    made_prog = subprocess.run([sys.executable, os.path.join(ROOT, "scripts", "make_jpeg_copy.py"), hold, prog_dir,
+                                "--quality", "90", "--subsampling", "2", "--progressive", "--decoded", prog_npy],
+                               capture_output=True, text=True, timeout=300)
+    if made_prog.returncode != 0:
+        raise AssertionError(f"scripts/make_jpeg_copy.py --progressive (PIL) failed:\n{made_prog.stderr[-2000:]}")
+    prog_data, _ = find_ndds_data_in_dir(prog_dir)
+    prog_paths = [d["image_paths"]["rgb"] for d in prog_data]
+    sof2 = 0
+    for path in prog_paths:
+        with open(path, "rb") as f:
+            sof2 += b"\xff\xc2" in f.read()
+    prog_frames = native_loader.decode_batch(prog_paths, 480, 640, 8)
+    prog_equal_pil = sum(np.array_equal(a, b) for a, b in zip(prog_frames, np.load(prog_npy)))
+    prog_equal_baseline = sum(np.array_equal(a, b) for a, b in zip(prog_frames, jpeg_frames))
+    prog_ms = {"1_thread": ms_a_frame(prog_paths, 1), "8_threads": ms_a_frame(prog_paths, 8)}
+    prog_bytes = sum(os.path.getsize(p) for p in prog_paths) / len(prog_paths)
+    base_bytes = sum(os.path.getsize(p) for p in jpeg_paths) / len(jpeg_paths)
+    prog_eval = os.path.join(tmp, "eval_vggq_jpeg_progressive")
+    _, _, prog_s, prog_counts = timed(eval_cli.network_inference_dataset, eval_cli.make_parser().parse_args(
+        ["-i", CHECKPOINT, "-d", prog_dir, "-o", prog_eval, "--no-visualization", "-b", "16", "-w", "8"]))
+    with open(os.path.join(prog_eval, "keypoints.csv")) as a, open(os.path.join(jpeg_eval, "keypoints.csv")) as b:
+        prog_lines, base_lines = a.read().splitlines(), b.read().splitlines()
+    same_lines = sum(x == y for x, y in zip(prog_lines, base_lines))
+    progress("progressive_jpeg_evaluation_cli", written_by="PIL " + made_prog.stdout.strip(),
+             progressive_files=sof2, frames_equal_to_pil=prog_equal_pil,
+             frames_equal_to_baseline_copy=prog_equal_baseline, ms_a_frame=prog_ms, baseline_ms_a_frame=jpeg_ms,
+             bytes_a_frame=prog_bytes, baseline_bytes_a_frame=base_bytes, seconds=prog_s,
+             frames_per_s=HOLDOUT_FRAMES / prog_s, launches=prog_counts,
+             keypoints_csv_lines_equal_to_baseline_run=[same_lines, len(base_lines)], card=smi)
+    if (sof2 != HOLDOUT_FRAMES or prog_equal_pil != HOLDOUT_FRAMES or prog_equal_baseline != HOLDOUT_FRAMES
+            or prog_counts["score_kernel"] != HOLDOUT_FRAMES // 16
+            or len(prog_lines) != len(base_lines) or same_lines != len(base_lines)):
+        raise AssertionError("phase 31 (b'): see the line above")
+
     # (c) The JPEG frames served live in bf16 at batch 1, through the client.
     K = load_camera_intrinsics(found_configs["camera"])
     server = DreamInferenceServer(network, base_frame="panda_link0")
@@ -2245,6 +2293,33 @@ def jpeg_and_tools_phase(kernels_of_port, reset_counts, smi, work, network):
             or serve_counts["score_kernel"] != HOLDOUT_FRAMES
             or vs_cli["same_found_state"] < vs_cli["keypoints"] - 3 or vs_cli["median_px"] > 0.05 or abs(published - pnp["num_pnp_found"]) > 1):
         raise AssertionError("phase 31 (c): see the line above")
+
+    # (b') served: 8 progressive bodies posted to the same network's server,
+    # one score launch each; each request's detections equal (c)'s of the
+    # same frame (the same pixels at batch 1), and hold to the progressive
+    # CLI run's rows under (c)'s bounds.
+    server = DreamInferenceServer(network, base_frame="panda_link0")
+    httpd, url = start_http(server)
+    try:
+        prog_records = record_frames(server)
+        reset_counts()
+        for path in prog_paths[:8]:
+            with open(path, "rb") as f:
+                http_post(url, "/image", f.read())
+        prog_serve_counts = launches()
+    finally:
+        stop_http(httpd)
+    for k, v in prog_serve_counts.items():
+        counts[k] += v
+    prog_detected = np.stack([r["detected"] for r in prog_records])
+    equal_to_c = sum(np.array_equal(a, b["detected"]) for a, b in zip(prog_detected, records[:8]))
+    prog_vs_cli = detection_agreement(prog_detected, csv_detections(os.path.join(prog_eval, "keypoints.csv"))[:8])
+    progress("progressive_jpeg_serving", requests=len(prog_records), launches=prog_serve_counts,
+             detections_equal_to_baseline_requests=[equal_to_c, 8], detections_vs_evaluation_cli=prog_vs_cli,
+             card=smi)
+    if (len(prog_records) != 8 or prog_serve_counts["score_kernel"] != 8 or equal_to_c != 8
+            or prog_vs_cli["same_found_state"] < prog_vs_cli["keypoints"] - 3 or prog_vs_cli["median_px"] > 0.05):
+        raise AssertionError("phase 31 (b'), served: see the line above")
 
     # (d) Encoder pretraining at the CLI's defaults (256x256, batch 32,
     # bf16): 200 steps on a 64-scene device pool, then 20 streamed.

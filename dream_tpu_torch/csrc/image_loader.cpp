@@ -9,13 +9,19 @@
 // machine has neither library (only zlib), so both decoders are written
 // here and held bit-equal to those libraries on the CPU
 // (tests/test_torch_image_loader.py):
-// - JPEG: baseline and extended sequential Huffman scans, interleaved or
-//   not, with restart intervals; libjpeg's defaults for what it outputs
-//   as JCS_RGB: the accurate integer IDCT (jidctint.c jpeg_idct_islow),
-//   fancy upsampling (jdsample.c h2v1/h1v2/h2v2 triangle filters, box
-//   replication for other factors) and the fixed-point YCbCr->RGB of
-//   jdcolor.c.  Progressive, lossless and arithmetic-coded files, 12-bit
-//   samples and CMYK fail to decode.
+// - JPEG: every frame libjpeg decodes: baseline, extended sequential and
+//   progressive, Huffman- or arithmetic-coded (SOF0-2, SOF9-10), scans
+//   interleaved or not, restart intervals, DAC conditioning, the standard
+//   Huffman tables where a sequential file defines none, and a file cut
+//   short as libjpeg reads it (zero bits past the data).  The output is
+//   libjpeg-turbo's for JCS_RGB at its defaults: block smoothing of a
+//   progressive file whose coefficients miss their last bits (jdcoefct.c
+//   as libjpeg-turbo 2.1 has it), the accurate integer IDCT (jidctint.c)
+//   in the arithmetic of its x86 SIMD code, fancy upsampling (jdsample.c
+//   h2v1/h1v2/h2v2 triangle filters, box replication for other factors)
+//   and the fixed-point YCbCr->RGB of jdcolor.c.  What libjpeg refuses
+//   fails here too: lossless and hierarchical frames, 12-bit samples, two
+//   or four components (CMYK), reserved markers.
 // - PNG: every bit depth and colour type, Adam7 interlacing, normalized to
 //   8-bit RGB as native/dream_loader.cpp asks libpng to (16-bit samples
 //   keep their high byte, palette and gray expand, alpha and tRNS are
@@ -42,6 +48,7 @@
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
+#include <memory>
 #include <thread>
 #include <vector>
 
@@ -73,14 +80,17 @@ constexpr int kZigzag[64 + 16] = {
     // Extra entries for safety against a run past 63 (libjpeg's jpeg_natural_order).
     63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
 
-constexpr int kLookahead = 9;
+constexpr int kLookahead = 8;     // jdhuff.h HUFF_LOOKAHEAD
+constexpr int kMaxBlocksInMcu = 10;  // jpeglib.h D_MAX_BLOCKS_IN_MCU
+constexpr int kArithTables = 16;  // jpeglib.h NUM_ARITH_TBLS
 
 struct HuffTable {
   bool present = false;
+  int n_symbols = 0;
   uint8_t vals[256] = {};
   int32_t maxcode[18] = {};
   int32_t valoffset[18] = {};
-  uint8_t look_len[1 << kLookahead] = {};  // 0: code longer than the lookahead
+  uint8_t look_len[1 << kLookahead] = {};  // kLookahead + 1: the code is longer
   uint8_t look_val[1 << kLookahead] = {};
 };
 
@@ -114,7 +124,7 @@ bool BuildHuffTable(const uint8_t* counts, const uint8_t* symbols, int n_symbols
   }
   t->valoffset[17] = 0;
   t->maxcode[17] = 0xFFFFF;
-  memset(t->look_len, 0, sizeof(t->look_len));
+  memset(t->look_len, kLookahead + 1, sizeof(t->look_len));
   p = 0;
   for (int l = 1; l <= kLookahead; ++l) {
     for (int i = 1; i <= counts[l - 1]; ++i, ++p) {
@@ -125,114 +135,288 @@ bool BuildHuffTable(const uint8_t* counts, const uint8_t* symbols, int n_symbols
       }
     }
   }
+  memset(t->vals, 0, sizeof(t->vals));
   memcpy(t->vals, symbols, size_t(n_symbols));
+  t->n_symbols = n_symbols;
   t->present = true;
   return true;
 }
 
-// The entropy-coded segment's bits.  At a marker (or the end of the data)
-// zero bits follow, as libjpeg inserts them; `insufficient` says a decode
-// needed bits past that point.
-struct BitReader {
-  const uint8_t* data;
-  size_t len;
-  size_t pos;
-  uint64_t buf = 0;  // bits at the top
-  int bits = 0;      // bits in buf
-  int real_bits = 0;  // of those, bits read from the data
-  bool at_marker = false;
-  bool insufficient = false;
+// The tables of the JPEG standard's Annex K.3 (jstdhuff.c), which libjpeg
+// puts in the Huffman slots 0 and 1 of a sequential file that no DHT
+// filled before its first scan: Motion-JPEG frames leave them out.
+constexpr uint8_t kStdDcLumaCounts[16] = {0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0};
+constexpr uint8_t kStdDcChromaCounts[16] = {0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0};
+constexpr uint8_t kStdDcValues[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+constexpr uint8_t kStdAcLumaCounts[16] = {0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d};
+constexpr uint8_t kStdAcLumaValues[162] = {
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51, 0x61,
+    0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08, 0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52,
+    0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72, 0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25,
+    0x26, 0x27, 0x28, 0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
+    0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59, 0x5a, 0x63, 0x64,
+    0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x83,
+    0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99,
+    0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
+    0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3,
+    0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8,
+    0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+constexpr uint8_t kStdAcChromaCounts[16] = {0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77};
+constexpr uint8_t kStdAcChromaValues[162] = {
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07, 0x61,
+    0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33,
+    0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1, 0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18,
+    0x19, 0x1a, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44,
+    0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59, 0x5a, 0x63,
+    0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a,
+    0x82, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97,
+    0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
+    0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca,
+    0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7,
+    0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
 
-  void Fill() {
-    while (bits <= 56) {
-      uint32_t byte = 0;
-      bool real = false;
-      if (!at_marker && pos < len) {
-        uint32_t b = data[pos];
-        if (b == 0xFF) {
-          size_t q = pos + 1;
-          while (q < len && data[q] == 0xFF) ++q;
-          if (q < len && data[q] == 0x00) {
-            byte = 0xFF;
-            real = true;
-            pos = q + 1;
-          } else {
-            at_marker = true;  // pos stays on the marker's first 0xFF
-          }
+// The compressed data as libjpeg's source manager hands it out: past its
+// end come fake EOI markers (jdatasrc.c fill_input_buffer), so every read
+// ends at a marker.
+struct Source {
+  const uint8_t* data = nullptr;
+  size_t len = 0;
+  size_t pos = 0;
+  size_t fake = 0;
+  int unread_marker = 0;  // a marker read but not yet acted on (jdmarker.c)
+  int next_restart_num = 0;
+
+  int Byte() {
+    if (pos < len) return data[pos++];
+    return (fake++ & 1) ? 0xD9 : 0xFF;
+  }
+
+  // jdmarker.c next_marker: skip to the next marker (garbage and stuffed
+  // FF/00 pairs included) and read its code.
+  int NextMarker() {
+    for (;;) {
+      int c = Byte();
+      while (c != 0xFF) c = Byte();
+      do c = Byte();
+      while (c == 0xFF);
+      if (c != 0) {
+        unread_marker = c;
+        return c;
+      }
+    }
+  }
+
+  // jdmarker.c read_restart_marker and jpeg_resync_to_restart.  A marker
+  // left unread makes the entropy decoder treat the segment as empty.
+  void ReadRestartMarker() {
+    if (unread_marker == 0) NextMarker();
+    const int desired = next_restart_num;
+    if (unread_marker == 0xD0 + desired) {
+      unread_marker = 0;
+    } else {
+      for (;;) {
+        const int m = unread_marker;
+        int action;
+        if (m < 0xC0) {
+          action = 2;  // not a valid marker: scan on
+        } else if (m < 0xD0 || m > 0xD7) {
+          action = 3;  // a valid marker that is not a restart: leave it
+        } else if (m == 0xD0 + ((desired + 1) & 7) || m == 0xD0 + ((desired + 2) & 7)) {
+          action = 3;  // one of the next two restarts
+        } else if (m == 0xD0 + ((desired - 1) & 7) || m == 0xD0 + ((desired - 2) & 7)) {
+          action = 2;  // an earlier restart: scan on
         } else {
-          byte = b;
-          real = true;
-          ++pos;
+          action = 1;  // the desired restart, or one too far away
         }
-      } else {
-        at_marker = true;
+        if (action == 1) {
+          unread_marker = 0;
+          break;
+        }
+        if (action == 3) break;
+        NextMarker();
       }
-      buf |= uint64_t(byte) << (56 - bits);
-      bits += 8;
-      if (real) real_bits += 8;
     }
-  }
-
-  uint32_t Peek(int n) {
-    if (bits < n) Fill();
-    return uint32_t(buf >> (64 - n));
-  }
-
-  void Skip(int n) {
-    if (n > real_bits) insufficient = true;
-    buf <<= n;
-    bits -= n;
-    real_bits = std::max(0, real_bits - n);
-  }
-
-  uint32_t Get(int n) {
-    if (n == 0) return 0;
-    uint32_t v = Peek(n);
-    Skip(n);
-    return v;
-  }
-
-  // Drop the buffered bits and move past the next RSTn marker.
-  void Restart() {
-    buf = 0;
-    bits = real_bits = 0;
-    at_marker = false;
-    while (pos + 1 < len) {
-      if (data[pos] == 0xFF && data[pos + 1] >= 0xD0 && data[pos + 1] <= 0xD7) {
-        pos += 2;
-        return;
-      }
-      if (data[pos] == 0xFF && data[pos + 1] != 0x00 && data[pos + 1] != 0xFF) return;
-      ++pos;
-    }
-  }
-
-  // The position of the marker that ended the segment.
-  size_t MarkerPos() {
-    size_t q = pos;
-    while (q + 1 < len && !(data[q] == 0xFF && data[q + 1] != 0x00 && data[q + 1] != 0xFF)) ++q;
-    return q;
+    next_restart_num = (next_restart_num + 1) & 7;
   }
 };
 
-int DecodeHuff(BitReader* br, const HuffTable& t) {
-  uint32_t look = br->Peek(kLookahead);
-  int l = t.look_len[look];
-  if (l) {
-    br->Skip(l);
-    return t.look_val[look];
+// Huffman-coded bits (jdhuff.c jpeg_fill_bit_buffer, HUFF_DECODE and
+// jpeg_huff_decode).  At a marker zero bits follow, and `insufficient` is
+// raised the first time a read goes past the data.
+struct HuffBits {
+  static constexpr int kMinGetBits = 57;  // BIT_BUF_SIZE - 7
+  Source* src;
+  bool* insufficient;
+  uint64_t buf = 0;  // the low `bits` bits are unread
+  int bits = 0;
+
+  void Fill(int nbits) {
+    if (src->unread_marker == 0) {
+      while (bits < kMinGetBits) {
+        int c = src->Byte();
+        if (c == 0xFF) {
+          do c = src->Byte();
+          while (c == 0xFF);
+          if (c == 0) {
+            c = 0xFF;
+          } else {
+            src->unread_marker = c;
+            break;
+          }
+        }
+        buf = (buf << 8) | uint64_t(c);
+        bits += 8;
+      }
+      if (src->unread_marker == 0) return;
+    }
+    if (nbits > bits) {
+      *insufficient = true;
+      buf <<= kMinGetBits - bits;
+      bits = kMinGetBits;
+    }
   }
-  l = kLookahead + 1;
-  int32_t code = int32_t(br->Get(l));
-  while (l <= 16 && code > t.maxcode[l]) {
-    code = (code << 1) | int32_t(br->Get(1));
-    ++l;
+
+  int Get(int n) {
+    if (bits < n) Fill(n);
+    bits -= n;
+    return int((buf >> bits) & ((uint64_t(1) << n) - 1));
   }
-  if (l > 16) return 0;  // a corrupt code: libjpeg warns and returns 0
-  return t.vals[(code + t.valoffset[l]) & 0xFF];
-}
+
+  int Decode(const HuffTable& t) {
+    int nb = 1;
+    if (bits < kLookahead) Fill(0);
+    if (bits >= kLookahead) {
+      int look = int((buf >> (bits - kLookahead)) & ((1 << kLookahead) - 1));
+      nb = t.look_len[look];
+      if (nb <= kLookahead) {
+        bits -= nb;
+        return t.look_val[look];
+      }
+    }
+    int32_t code = Get(nb);
+    while (code > t.maxcode[nb]) {
+      code = (code << 1) | Get(1);
+      ++nb;
+    }
+    if (nb > 16) return 0;  // a corrupt code: libjpeg warns and returns 0
+    return t.vals[(code + t.valoffset[nb]) & 0xFF];
+  }
+
+  void Discard() { bits = 0; }
+};
 
 inline int Extend(int r, int s) { return r < (1 << (s - 1)) ? r - (1 << s) + 1 : r; }
+
+// jaricom.c jpeg_aritab: Table D.2 of the JPEG standard packed as Qe << 16
+// | Next_Index_MPS << 8 | Switch_MPS << 7 | Next_Index_LPS; the last entry
+// is the fixed probability 0.5.
+#define ARITAB(qe, nlps, nmps, sw) ((int32_t(qe) << 16) | (int32_t(nmps) << 8) | (int32_t(sw) << 7) | (nlps))
+constexpr int32_t kArithTable[113 + 1] = {
+    ARITAB(0x5a1d, 1, 1, 1),     ARITAB(0x2586, 14, 2, 0),    ARITAB(0x1114, 16, 3, 0),
+    ARITAB(0x080b, 18, 4, 0),    ARITAB(0x03d8, 20, 5, 0),    ARITAB(0x01da, 23, 6, 0),
+    ARITAB(0x00e5, 25, 7, 0),    ARITAB(0x006f, 28, 8, 0),    ARITAB(0x0036, 30, 9, 0),
+    ARITAB(0x001a, 33, 10, 0),   ARITAB(0x000d, 35, 11, 0),   ARITAB(0x0006, 9, 12, 0),
+    ARITAB(0x0003, 10, 13, 0),   ARITAB(0x0001, 12, 13, 0),   ARITAB(0x5a7f, 15, 15, 1),
+    ARITAB(0x3f25, 36, 16, 0),   ARITAB(0x2cf2, 38, 17, 0),   ARITAB(0x207c, 39, 18, 0),
+    ARITAB(0x17b9, 40, 19, 0),   ARITAB(0x1182, 42, 20, 0),   ARITAB(0x0cef, 43, 21, 0),
+    ARITAB(0x09a1, 45, 22, 0),   ARITAB(0x072f, 46, 23, 0),   ARITAB(0x055c, 48, 24, 0),
+    ARITAB(0x0406, 49, 25, 0),   ARITAB(0x0303, 51, 26, 0),   ARITAB(0x0240, 52, 27, 0),
+    ARITAB(0x01b1, 54, 28, 0),   ARITAB(0x0144, 56, 29, 0),   ARITAB(0x00f5, 57, 30, 0),
+    ARITAB(0x00b7, 59, 31, 0),   ARITAB(0x008a, 60, 32, 0),   ARITAB(0x0068, 62, 33, 0),
+    ARITAB(0x004e, 63, 34, 0),   ARITAB(0x003b, 32, 35, 0),   ARITAB(0x002c, 33, 9, 0),
+    ARITAB(0x5ae1, 37, 37, 1),   ARITAB(0x484c, 64, 38, 0),   ARITAB(0x3a0d, 65, 39, 0),
+    ARITAB(0x2ef1, 67, 40, 0),   ARITAB(0x261f, 68, 41, 0),   ARITAB(0x1f33, 69, 42, 0),
+    ARITAB(0x19a8, 70, 43, 0),   ARITAB(0x1518, 72, 44, 0),   ARITAB(0x1177, 73, 45, 0),
+    ARITAB(0x0e74, 74, 46, 0),   ARITAB(0x0bfb, 75, 47, 0),   ARITAB(0x09f8, 77, 48, 0),
+    ARITAB(0x0861, 78, 49, 0),   ARITAB(0x0706, 79, 50, 0),   ARITAB(0x05cd, 48, 51, 0),
+    ARITAB(0x04de, 50, 52, 0),   ARITAB(0x040f, 50, 53, 0),   ARITAB(0x0363, 51, 54, 0),
+    ARITAB(0x02d4, 52, 55, 0),   ARITAB(0x025c, 53, 56, 0),   ARITAB(0x01f8, 54, 57, 0),
+    ARITAB(0x01a4, 55, 58, 0),   ARITAB(0x0160, 56, 59, 0),   ARITAB(0x0125, 57, 60, 0),
+    ARITAB(0x00f6, 58, 61, 0),   ARITAB(0x00cb, 59, 62, 0),   ARITAB(0x00ab, 61, 63, 0),
+    ARITAB(0x008f, 61, 32, 0),   ARITAB(0x5b12, 65, 65, 1),   ARITAB(0x4d04, 80, 66, 0),
+    ARITAB(0x412c, 81, 67, 0),   ARITAB(0x37d8, 82, 68, 0),   ARITAB(0x2fe8, 83, 69, 0),
+    ARITAB(0x293c, 84, 70, 0),   ARITAB(0x2379, 86, 71, 0),   ARITAB(0x1edf, 87, 72, 0),
+    ARITAB(0x1aa9, 87, 73, 0),   ARITAB(0x174e, 72, 74, 0),   ARITAB(0x1424, 72, 75, 0),
+    ARITAB(0x119c, 74, 76, 0),   ARITAB(0x0f6b, 74, 77, 0),   ARITAB(0x0d51, 75, 78, 0),
+    ARITAB(0x0bb6, 77, 79, 0),   ARITAB(0x0a40, 77, 48, 0),   ARITAB(0x5832, 80, 81, 1),
+    ARITAB(0x4d1c, 88, 82, 0),   ARITAB(0x438e, 89, 83, 0),   ARITAB(0x3bdd, 90, 84, 0),
+    ARITAB(0x34ee, 91, 85, 0),   ARITAB(0x2eae, 92, 86, 0),   ARITAB(0x299a, 93, 87, 0),
+    ARITAB(0x2516, 86, 71, 0),   ARITAB(0x5570, 88, 89, 1),   ARITAB(0x4ca9, 95, 90, 0),
+    ARITAB(0x44d9, 96, 91, 0),   ARITAB(0x3e22, 97, 92, 0),   ARITAB(0x3824, 99, 93, 0),
+    ARITAB(0x32b4, 99, 94, 0),   ARITAB(0x2e17, 93, 86, 0),   ARITAB(0x56a8, 95, 96, 1),
+    ARITAB(0x4f46, 101, 97, 0),  ARITAB(0x47e5, 102, 98, 0),  ARITAB(0x41cf, 103, 99, 0),
+    ARITAB(0x3c3d, 104, 100, 0), ARITAB(0x375e, 99, 93, 0),   ARITAB(0x5231, 105, 102, 0),
+    ARITAB(0x4c0f, 106, 103, 0), ARITAB(0x4639, 107, 104, 0), ARITAB(0x415e, 103, 99, 0),
+    ARITAB(0x5627, 105, 106, 1), ARITAB(0x50e7, 108, 107, 0), ARITAB(0x4b85, 109, 103, 0),
+    ARITAB(0x5597, 110, 109, 0), ARITAB(0x504f, 111, 107, 0), ARITAB(0x5a10, 110, 111, 1),
+    ARITAB(0x5522, 112, 109, 0), ARITAB(0x59eb, 112, 111, 1), ARITAB(0x5a1d, 113, 113, 0)};
+#undef ARITAB
+
+// The QM decoder (jdarith.c arith_decode and get_byte).  A marker inside
+// the data ends it: zero bytes follow.
+struct ArithBits {
+  Source* src;
+  int64_t c = 0, a = 0;
+  int ct = -16;  // -16: two bytes to read into C first; -1: a decoding error
+
+  void Reset() {
+    c = a = 0;
+    ct = -16;
+  }
+
+  int Decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        int data = 0;
+        if (src->unread_marker == 0) {
+          data = src->Byte();
+          if (data == 0xFF) {
+            do data = src->Byte();
+            while (data == 0xFF);
+            if (data == 0) {
+              data = 0xFF;
+            } else {
+              src->unread_marker = data;
+              data = 0;
+            }
+          }
+        }
+        c = (c << 8) | data;
+        if ((ct += 8) < 0)
+          if (++ct == 0) a = 0x8000;  // two initial bytes read: A becomes 0x10000 below
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    int32_t qe = kArithTable[sv & 0x7F];
+    const int nl = qe & 0xFF;
+    qe >>= 8;
+    const int nm = qe & 0xFF;
+    qe >>= 8;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {
+        a = qe;
+        *st = uint8_t((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = uint8_t((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+};
 
 struct Component {
   int id = 0, h = 1, v = 1, tq = 0;
@@ -243,40 +427,98 @@ struct Component {
   std::vector<int16_t> coefs;      // blocks_w * blocks_h * 64
   int16_t quant[64] = {};          // latched at the component's first scan
   bool quant_latched = false;
-  int pred = 0;
+  // Progressive files: the successive-approximation bit each coefficient
+  // is known to (-1: none yet), and its value before the component's
+  // latest scan (jdphuff.c / jdarith.c cinfo->coef_bits).
+  int coef_bits[64];
+  int prev_coef_bits[64];
+
+  int16_t* Block(int by, int bx) { return &coefs[(size_t(by) * blocks_w + bx) * 64]; }
+};
+
+// A scan's entropy decoder state, for all four procedures of both codings.
+struct ScanState {
+  int ns = 0;
+  Component* comp[4] = {};
+  int ss = 0, se = 63, ah = 0, al = 0;
+  // Huffman.
+  bool insufficient = false;
+  HuffBits huff;
+  const HuffTable* dc_tbl[4] = {};
+  const HuffTable* ac_tbl[4] = {};
+  unsigned eobrun = 0;
+  // Arithmetic.
+  ArithBits arith;
+  uint8_t dc_stats[kArithTables][64];
+  uint8_t ac_stats[kArithTables][256];
+  uint8_t fixed_bin = 113;
+  int dc_context[4] = {};
+  // Both.
+  int last_dc[4] = {};
 };
 
 struct JpegDecoder {
-  const uint8_t* data = nullptr;
-  size_t len = 0;
-  size_t pos = 2;
+  Source src;
   uint16_t qt[4][64] = {};
   bool qt_present[4] = {};
   HuffTable dc[4], ac[4];
+  uint8_t arith_dc_l[kArithTables], arith_dc_u[kArithTables], arith_ac_k[kArithTables];
   int restart_interval = 0;
   bool saw_jfif = false, saw_adobe = false;
   int adobe_transform = 0;
   int width = 0, height = 0;
   int hmax = 1, vmax = 1;
+  int mcus_x = 0, mcus_y = 0;  // of an interleaved scan
   std::vector<Component> comps;
   bool frame_seen = false;
+  bool progressive = false, arithmetic = false;
+  bool multiple_scans = false;  // jdinput.c has_multiple_scans
+  int scans = 0;                // jdmarker.c input_scan_number
+  int last_good_imcu_row = 0;   // jdmaster.c last_good_iMCU_row
+  ScanState scan;
 
-  bool Segment(size_t* body, size_t* body_len) {
-    if (pos + 2 > len) return false;
-    size_t seg = (size_t(data[pos]) << 8) | data[pos + 1];
-    if (seg < 2 || pos + seg > len) return false;
-    *body = pos + 2;
+  JpegDecoder() {
+    // jdmarker.c get_soi.
+    for (int i = 0; i < kArithTables; ++i) {
+      arith_dc_l[i] = 0;
+      arith_dc_u[i] = 1;
+      arith_ac_k[i] = 5;
+    }
+  }
+
+  int TotalImcuRows() const { return (height + 8 * vmax - 1) / (8 * vmax); }
+
+  // A marker segment's body.  One the data cuts short is read on into the
+  // fake EOI bytes, as libjpeg reads it.  A length below 2 leaves the body
+  // empty: libjpeg skips nothing more of a segment it skips (APPn, COM,
+  // DNL) and fails any other on its length.
+  std::vector<uint8_t> cut_segment;
+  bool Segment(bool skipped, const uint8_t** body, size_t* body_len) {
+    const int hi = src.Byte(), lo = src.Byte();
+    const size_t seg = size_t(hi << 8 | lo);
+    if (seg < 2) {
+      *body = nullptr;
+      *body_len = 0;
+      return skipped;
+    }
     *body_len = seg - 2;
-    pos += seg;
+    if (src.pos + *body_len <= src.len) {
+      *body = src.data + src.pos;
+      src.pos += *body_len;
+    } else {
+      cut_segment.resize(*body_len);
+      for (uint8_t& b : cut_segment) b = uint8_t(src.Byte());
+      *body = cut_segment.data();
+    }
     return true;
   }
 
-  bool ReadDqt(size_t b, size_t n) {
-    size_t end = b + n;
+  bool ReadDqt(const uint8_t* data, size_t n) {
+    size_t b = 0, end = n;
     while (b < end) {
-      int pq = data[b] >> 4, tq = data[b] & 15;
+      int pq = (data[b] >> 4) != 0, tq = data[b] & 15;  // any nonzero precision: 16-bit
       ++b;
-      if (tq > 3 || pq > 1 || b + (pq ? 128 : 64) > end) return false;
+      if (tq > 3 || b + (pq ? 128 : 64) > end) return false;
       for (int i = 0; i < 64; ++i) {
         qt[tq][kZigzag[i]] = pq ? uint16_t((data[b + 2 * i] << 8) | data[b + 2 * i + 1]) : data[b + i];
       }
@@ -286,8 +528,8 @@ struct JpegDecoder {
     return true;
   }
 
-  bool ReadDht(size_t b, size_t n) {
-    size_t end = b + n;
+  bool ReadDht(const uint8_t* data, size_t n) {
+    size_t b = 0, end = n;
     while (b < end) {
       if (b + 17 > end) return false;
       int tc = data[b] >> 4, th = data[b] & 15;
@@ -302,26 +544,45 @@ struct JpegDecoder {
     return true;
   }
 
-  bool ReadSof(size_t b, size_t n) {
-    if (frame_seen || n < 6 || data[b] != 8) return false;  // 8-bit samples only
-    height = (data[b + 1] << 8) | data[b + 2];
-    width = (data[b + 3] << 8) | data[b + 4];
-    int nc = data[b + 5];
+  // jdmarker.c get_dac: arithmetic conditioning, two bytes a table.
+  bool ReadDac(const uint8_t* data, size_t n) {
+    if (n % 2) return false;
+    for (size_t i = 0; i < n; i += 2) {
+      int index = data[i], val = data[i + 1];
+      if (index >= 2 * kArithTables) return false;
+      if (index >= kArithTables) {
+        arith_ac_k[index - kArithTables] = uint8_t(val);
+      } else {
+        arith_dc_l[index] = uint8_t(val & 0x0F);
+        arith_dc_u[index] = uint8_t(val >> 4);
+        if (arith_dc_l[index] > arith_dc_u[index]) return false;
+      }
+    }
+    return true;
+  }
+
+  bool ReadSof(const uint8_t* data, size_t n) {
+    if (frame_seen || n < 6 || data[0] != 8) return false;  // 8-bit samples only
+    height = (data[1] << 8) | data[2];
+    width = (data[3] << 8) | data[4];
+    int nc = data[5];
     if (width <= 0 || height <= 0 || int64_t(width) * height > kMaxPixels) return false;
-    if (nc < 1 || nc > 4 || n < 6 + size_t(3 * nc)) return false;
+    if (nc < 1 || nc > 4 || n != 6 + size_t(3 * nc)) return false;
     comps.resize(nc);
     for (int i = 0; i < nc; ++i) {
       Component& c = comps[i];
-      c.id = data[b + 6 + 3 * i];
-      c.h = data[b + 7 + 3 * i] >> 4;
-      c.v = data[b + 7 + 3 * i] & 15;
-      c.tq = data[b + 8 + 3 * i];
+      c.id = data[6 + 3 * i];
+      c.h = data[7 + 3 * i] >> 4;
+      c.v = data[7 + 3 * i] & 15;
+      c.tq = data[8 + 3 * i];
       if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4 || c.tq > 3) return false;
       hmax = std::max(hmax, c.h);
       vmax = std::max(vmax, c.v);
+      std::fill(c.coef_bits, c.coef_bits + 64, -1);
+      std::fill(c.prev_coef_bits, c.prev_coef_bits + 64, 0);
     }
-    int mcus_x = (width + 8 * hmax - 1) / (8 * hmax);
-    int mcus_y = (height + 8 * vmax - 1) / (8 * vmax);
+    mcus_x = (width + 8 * hmax - 1) / (8 * hmax);
+    mcus_y = (height + 8 * vmax - 1) / (8 * vmax);
     for (Component& c : comps) {
       c.dw = int((int64_t(width) * c.h + hmax - 1) / hmax);
       c.dh = int((int64_t(height) * c.v + vmax - 1) / vmax);
@@ -335,298 +596,767 @@ struct JpegDecoder {
     return true;
   }
 
-  bool DecodeBlock(BitReader* br, Component& c, int16_t* block) {
-    const HuffTable& dct = dc[c.td];
-    const HuffTable& act = ac[c.ta];
-    int s = DecodeHuff(br, dct);
-    int diff = 0;
-    if (s) {
-      if (s > 16) return false;
-      diff = Extend(int(br->Get(s)), s);
-    }
-    c.pred += diff;
-    block[0] = int16_t(c.pred);
-    for (int k = 1; k < 64; ++k) {
-      int rs = DecodeHuff(br, act);
-      int r = rs >> 4;
-      s = rs & 15;
-      if (s) {
-        k += r;
-        block[kZigzag[k]] = int16_t(Extend(int(br->Get(s)), s));
-      } else {
-        if (r != 15) break;
-        k += 15;
+  // --- Huffman: sequential (jdhuff.c decode_mcu) and the four progressive
+  // procedures (jdphuff.c).  Each returns false only on a fatal error.
+
+  void HuffSequential(ScanState& s, int16_t** blocks, const int* member, int n) {
+    for (int i = 0; i < n; ++i) {
+      const int ci = member[i];
+      int16_t* block = blocks[i];
+      int t = s.huff.Decode(*s.dc_tbl[ci]);
+      if (t) t = Extend(s.huff.Get(t), t);
+      s.last_dc[ci] = int(unsigned(s.last_dc[ci]) + unsigned(t));
+      block[0] = int16_t(s.last_dc[ci]);
+      const HuffTable& act = *s.ac_tbl[ci];
+      for (int k = 1; k < 64; ++k) {
+        int rs = s.huff.Decode(act);
+        int r = rs >> 4;
+        t = rs & 15;
+        if (t) {
+          k += r;
+          block[kZigzag[k]] = int16_t(Extend(s.huff.Get(t), t));
+        } else {
+          if (r != 15) break;
+          k += 15;
+        }
       }
+    }
+  }
+
+  bool HuffDcFirst(ScanState& s, int16_t** blocks, const int* member, int n) {
+    for (int i = 0; i < n; ++i) {
+      const int ci = member[i];
+      int t = s.huff.Decode(*s.dc_tbl[ci]);
+      if (t) t = Extend(s.huff.Get(t), t);
+      const int last = s.last_dc[ci];
+      if ((last >= 0 && t > INT32_MAX - last) || (last < 0 && t < INT32_MIN - last)) return false;
+      s.last_dc[ci] = last + t;
+      blocks[i][0] = int16_t(unsigned(s.last_dc[ci]) << s.al);
     }
     return true;
   }
 
-  bool ReadScan(size_t b, size_t n) {
-    if (!frame_seen || n < 1) return false;
-    int ns = data[b];
-    if (ns < 1 || ns > 4 || n < 4 + size_t(2 * ns)) return false;
-    std::vector<Component*> scan;
-    for (int i = 0; i < ns; ++i) {
-      int id = data[b + 1 + 2 * i];
-      Component* found = nullptr;
-      for (Component& c : comps)
-        if (c.id == id) found = &c;
-      if (!found) return false;
-      found->td = data[b + 2 + 2 * i] >> 4;
-      found->ta = data[b + 2 + 2 * i] & 15;
-      if (found->td > 3 || found->ta > 3 || !dc[found->td].present || !ac[found->ta].present)
-        return false;
-      if (!found->quant_latched) {
-        if (!qt_present[found->tq]) return false;
-        for (int k = 0; k < 64; ++k) found->quant[k] = int16_t(qt[found->tq][k]);
-        found->quant_latched = true;
-      }
-      scan.push_back(found);
-    }
-    size_t p = b + 1 + 2 * size_t(ns);
-    int ss = data[p], se = data[p + 1], ah = data[p + 2] >> 4, al = data[p + 2] & 15;
-    if (ss != 0 || se != 63 || ah != 0 || al != 0) return false;  // sequential scans only
+  void HuffDcRefine(ScanState& s, int16_t** blocks, int n) {
+    const int p1 = 1 << s.al;
+    for (int i = 0; i < n; ++i)
+      if (s.huff.Get(1)) blocks[i][0] = int16_t(blocks[i][0] | p1);
+  }
 
-    BitReader br{data, len, pos};
-    for (Component* c : scan) c->pred = 0;
-    int restarts_to_go = restart_interval;
-    auto restart = [&]() {
-      br.Restart();
-      for (Component* c : scan) c->pred = 0;
-      restarts_to_go = restart_interval;
-      br.insufficient = false;
+  void HuffAcFirst(ScanState& s, int16_t* block) {
+    if (s.eobrun > 0) {
+      --s.eobrun;
+      return;
+    }
+    const HuffTable& t = *s.ac_tbl[0];
+    for (int k = s.ss; k <= s.se; ++k) {
+      int v = s.huff.Decode(t);
+      int r = v >> 4;
+      v &= 15;
+      if (v) {
+        k += r;
+        v = Extend(s.huff.Get(v), v);
+        block[kZigzag[k]] = int16_t(unsigned(v) << s.al);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        s.eobrun = 1u << r;
+        if (r) s.eobrun += unsigned(s.huff.Get(r));
+        --s.eobrun;
+        break;
+      }
+    }
+  }
+
+  void HuffAcRefine(ScanState& s, int16_t* block) {
+    const int p1 = 1 << s.al;
+    const int m1 = int(~0u << s.al);
+    const HuffTable& t = *s.ac_tbl[0];
+    int k = s.ss;
+    auto correct = [&](int16_t* coef) {
+      if (s.huff.Get(1) && (*coef & p1) == 0) *coef = int16_t(*coef >= 0 ? *coef + p1 : *coef + m1);
     };
-    if (ns == 1) {
-      Component& c = *scan[0];
+    if (s.eobrun == 0) {
+      for (; k <= s.se; ++k) {
+        int v = s.huff.Decode(t);
+        int r = v >> 4;
+        v &= 15;
+        if (v) {
+          v = s.huff.Get(1) ? p1 : m1;  // a newly nonzero coefficient of size 1
+        } else if (r != 15) {
+          s.eobrun = 1u << r;
+          if (r) s.eobrun += unsigned(s.huff.Get(r));
+          break;  // the rest of the block is the EOB run's
+        }
+        // Skip r zero coefficients, correcting the nonzero ones passed.
+        do {
+          int16_t* coef = block + kZigzag[k];
+          if (*coef != 0) {
+            correct(coef);
+          } else if (--r < 0) {
+            break;
+          }
+          ++k;
+        } while (k <= s.se);
+        if (v) block[kZigzag[k]] = int16_t(v);
+      }
+    }
+    if (s.eobrun > 0) {
+      for (; k <= s.se; ++k) {
+        int16_t* coef = block + kZigzag[k];
+        if (*coef != 0) correct(coef);
+      }
+      --s.eobrun;
+    }
+  }
+
+  // --- Arithmetic (jdarith.c): sequential and the four progressive
+  // procedures.  A decoding error (ct = -1) stops the scan's output until
+  // the next restart, as libjpeg's does.
+
+  // Figures F.19-F.24: a DC difference (0, or its sign, magnitude category
+  // and bits); returns false on a magnitude overflow.
+  bool ArithDc(ScanState& s, int ci, int* diff) {
+    const int tbl = s.comp[ci]->td;
+    uint8_t* st = s.dc_stats[tbl] + s.dc_context[ci];
+    if (s.arith.Decode(st) == 0) {
+      s.dc_context[ci] = 0;
+      *diff = 0;
+      return true;
+    }
+    const int sign = s.arith.Decode(st + 1);
+    st += 2 + sign;
+    int m = s.arith.Decode(st);
+    if (m != 0) {
+      st = s.dc_stats[tbl] + 20;  // X1
+      while (s.arith.Decode(st)) {
+        if ((m <<= 1) == 0x8000) {
+          s.arith.ct = -1;
+          return false;
+        }
+        st += 1;
+      }
+    }
+    if (m < int((1L << arith_dc_l[tbl]) >> 1))
+      s.dc_context[ci] = 0;
+    else if (m > int((1L << arith_dc_u[tbl]) >> 1))
+      s.dc_context[ci] = 12 + sign * 4;
+    else
+      s.dc_context[ci] = 4 + sign * 4;
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (s.arith.Decode(st)) v |= m;
+    v += 1;
+    *diff = sign ? -v : v;
+    return true;
+  }
+
+  // One AC coefficient's value after its position is known (k, st at S0).
+  bool ArithAcValue(ScanState& s, int tbl, int k, uint8_t* st, int* out) {
+    const int sign = s.arith.Decode(&s.fixed_bin);
+    st += 2;
+    int m = s.arith.Decode(st);
+    if (m != 0) {
+      if (s.arith.Decode(st)) {
+        m <<= 1;
+        st = s.ac_stats[tbl] + (k <= arith_ac_k[tbl] ? 189 : 217);
+        while (s.arith.Decode(st)) {
+          if ((m <<= 1) == 0x8000) {
+            s.arith.ct = -1;
+            return false;
+          }
+          st += 1;
+        }
+      }
+    }
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (s.arith.Decode(st)) v |= m;
+    v += 1;
+    *out = sign ? -v : v;
+    return true;
+  }
+
+  // Figure F.20: a block's AC coefficients ss..se, each shifted left by al.
+  // A spectral or magnitude overflow sets ct to -1.
+  void ArithAcBand(ScanState& s, int tbl, int16_t* block, int ss, int se, int al) {
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* st = s.ac_stats[tbl] + 3 * (k - 1);
+      if (s.arith.Decode(st)) break;  // EOB
+      while (s.arith.Decode(st + 1) == 0) {
+        st += 3;
+        if (++k > se) {
+          s.arith.ct = -1;  // spectral overflow
+          return;
+        }
+      }
+      int v;
+      if (!ArithAcValue(s, tbl, k, st, &v)) return;
+      block[kZigzag[k]] = int16_t(unsigned(v) << al);
+    }
+  }
+
+  void ArithSequential(ScanState& s, int16_t** blocks, const int* member, int n) {
+    if (s.arith.ct == -1) return;
+    for (int i = 0; i < n; ++i) {
+      const int ci = member[i];
+      int diff;
+      if (!ArithDc(s, ci, &diff)) return;
+      s.last_dc[ci] = int(unsigned(s.last_dc[ci]) + unsigned(diff));
+      blocks[i][0] = int16_t(s.last_dc[ci]);
+      ArithAcBand(s, s.comp[ci]->ta, blocks[i], 1, 63, 0);
+      if (s.arith.ct == -1) return;
+    }
+  }
+
+  void ArithDcFirst(ScanState& s, int16_t** blocks, const int* member, int n) {
+    if (s.arith.ct == -1) return;
+    for (int i = 0; i < n; ++i) {
+      const int ci = member[i];
+      int diff;
+      if (!ArithDc(s, ci, &diff)) return;
+      s.last_dc[ci] = int(unsigned(s.last_dc[ci]) + unsigned(diff));
+      blocks[i][0] = int16_t(unsigned(s.last_dc[ci]) << s.al);
+    }
+  }
+
+  void ArithDcRefine(ScanState& s, int16_t** blocks, int n) {
+    const int p1 = 1 << s.al;
+    for (int i = 0; i < n; ++i)
+      if (s.arith.Decode(&s.fixed_bin)) blocks[i][0] = int16_t(blocks[i][0] | p1);
+  }
+
+  void ArithAcFirst(ScanState& s, int16_t* block) {
+    if (s.arith.ct != -1) ArithAcBand(s, s.comp[0]->ta, block, s.ss, s.se, s.al);
+  }
+
+  void ArithAcRefine(ScanState& s, int16_t* block) {
+    if (s.arith.ct == -1) return;
+    const int tbl = s.comp[0]->ta;
+    const int p1 = 1 << s.al;
+    const int m1 = int(~0u << s.al);
+    int kex = s.se;  // the previous stage's end of block
+    for (; kex > 0; --kex)
+      if (block[kZigzag[kex]]) break;
+    for (int k = s.ss; k <= s.se; ++k) {
+      uint8_t* st = s.ac_stats[tbl] + 3 * (k - 1);
+      if (k > kex && s.arith.Decode(st)) break;  // EOB
+      for (;;) {
+        int16_t* coef = block + kZigzag[k];
+        if (*coef) {
+          if (s.arith.Decode(st + 2)) *coef = int16_t(*coef < 0 ? *coef + m1 : *coef + p1);
+          break;
+        }
+        if (s.arith.Decode(st + 1)) {
+          *coef = int16_t(s.arith.Decode(&s.fixed_bin) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        ++k;
+        if (k > s.se) {
+          s.arith.ct = -1;
+          return;
+        }
+      }
+    }
+  }
+
+  // jdhuff.c / jdphuff.c / jdarith.c process_restart.
+  void Restart(ScanState& s) {
+    if (arithmetic) {
+      src.ReadRestartMarker();
+      for (int ci = 0; ci < s.ns; ++ci) {
+        if (!progressive || (s.ss == 0 && s.ah == 0)) {
+          memset(s.dc_stats[s.comp[ci]->td], 0, 64);
+          s.last_dc[ci] = 0;
+          s.dc_context[ci] = 0;
+        }
+        if (!progressive || s.ss) memset(s.ac_stats[s.comp[ci]->ta], 0, 256);
+      }
+      s.arith.Reset();
+    } else {
+      s.huff.Discard();
+      src.ReadRestartMarker();
+      for (int ci = 0; ci < s.ns; ++ci) s.last_dc[ci] = 0;
+      s.eobrun = 0;
+      if (src.unread_marker == 0) s.insufficient = false;
+    }
+  }
+
+  // One MCU by the scan's procedure.  Returns false on a fatal error.
+  bool DecodeMcu(ScanState& s, int16_t** blocks, const int* member, int n) {
+    if (arithmetic) {
+      if (!progressive) {
+        ArithSequential(s, blocks, member, n);
+      } else if (s.ss == 0) {
+        if (s.ah == 0)
+          ArithDcFirst(s, blocks, member, n);
+        else
+          ArithDcRefine(s, blocks, n);
+      } else if (s.ah == 0) {
+        ArithAcFirst(s, blocks[0]);
+      } else {
+        ArithAcRefine(s, blocks[0]);
+      }
+      return true;
+    }
+    if (!progressive) {
+      if (!s.insufficient) HuffSequential(s, blocks, member, n);
+    } else if (s.ss == 0) {
+      if (s.ah != 0) {
+        HuffDcRefine(s, blocks, n);  // zero bits past the data change nothing
+      } else if (!s.insufficient && !HuffDcFirst(s, blocks, member, n)) {
+        return false;
+      }
+    } else if (!s.insufficient) {
+      if (s.ah == 0)
+        HuffAcFirst(s, blocks[0]);
+      else
+        HuffAcRefine(s, blocks[0]);
+    }
+    return true;
+  }
+
+  // The scan header's checks and set-up (jdmarker.c get_sos, jdinput.c
+  // start_input_pass, the entropy decoders' start_pass).
+  bool StartScan(const uint8_t* data, size_t n, ScanState& s) {
+    if (!frame_seen || n < 1) return false;
+    const int ns = data[0];
+    if (ns < 1 || ns > 4 || n != 4 + size_t(2 * ns)) return false;
+    s.ns = ns;
+    bool taken[4] = {};
+    for (int i = 0; i < ns; ++i) {
+      int id = data[1 + 2 * i];
+      int found = -1;
+      for (int ci = 0; ci < int(comps.size()) && ci < 4; ++ci)
+        if (comps[ci].id == id && !taken[ci]) {
+          found = ci;
+          break;
+        }
+      if (found < 0) return false;
+      taken[found] = true;
+      Component* c = &comps[found];
+      c->td = data[2 + 2 * i] >> 4;
+      c->ta = data[2 + 2 * i] & 15;
+      s.comp[i] = c;
+    }
+    const size_t p = 1 + 2 * size_t(ns);
+    s.ss = data[p];
+    s.se = data[p + 1];
+    s.ah = data[p + 2] >> 4;
+    s.al = data[p + 2] & 15;
+    src.next_restart_num = 0;
+    ++scans;
+    if (scans == 1) {
+      multiple_scans = progressive || ns < int(comps.size());
+      if (!arithmetic && !progressive) {
+        // jdhuff.c jinit_huff_decoder's std_huff_tables (jdphuff.c has none).
+        if (!dc[0].present) BuildHuffTable(kStdDcLumaCounts, kStdDcValues, 12, &dc[0]);
+        if (!ac[0].present) BuildHuffTable(kStdAcLumaCounts, kStdAcLumaValues, 162, &ac[0]);
+        if (!dc[1].present) BuildHuffTable(kStdDcChromaCounts, kStdDcValues, 12, &dc[1]);
+        if (!ac[1].present) BuildHuffTable(kStdAcChromaCounts, kStdAcChromaValues, 162, &ac[1]);
+      }
+    } else if (!multiple_scans) {
+      return false;  // JERR_EOI_EXPECTED: one scan held every component
+    }
+    if (ns > 1) {
+      int blocks = 0;
+      for (int i = 0; i < ns; ++i) blocks += s.comp[i]->h * s.comp[i]->v;
+      if (blocks > kMaxBlocksInMcu) return false;
+    }
+    // jdinput.c latch_quant_tables.
+    for (int i = 0; i < ns; ++i) {
+      Component* c = s.comp[i];
+      if (c->quant_latched) continue;
+      if (!qt_present[c->tq]) return false;
+      for (int k = 0; k < 64; ++k) c->quant[k] = int16_t(qt[c->tq][k]);
+      c->quant_latched = true;
+    }
+    if (progressive) {
+      bool bad = false;
+      if (s.ss == 0) {
+        bad = s.se != 0;
+      } else {
+        bad = s.ss > s.se || s.se > 63 || ns != 1;
+      }
+      if (s.ah != 0 && s.al != s.ah - 1) bad = true;
+      if (s.al > 13) bad = true;
+      if (bad) return false;  // JERR_BAD_PROGRESSION
+      // Progression status; inconsistencies between scans are warnings.
+      for (int i = 0; i < ns; ++i) {
+        Component* c = s.comp[i];
+        for (int k = std::min(s.ss, 1); k <= std::max(s.se, 9); ++k)
+          c->prev_coef_bits[k] = scans > 1 ? c->coef_bits[k] : 0;
+        for (int k = s.ss; k <= s.se; ++k) c->coef_bits[k] = s.al;
+      }
+    }
+    s.last_dc[0] = s.last_dc[1] = s.last_dc[2] = s.last_dc[3] = 0;
+    s.eobrun = 0;
+    s.insufficient = false;
+    if (arithmetic) {
+      for (int i = 0; i < ns; ++i) {
+        const Component* c = s.comp[i];
+        if (!progressive || (s.ss == 0 && s.ah == 0)) {
+          memset(s.dc_stats[c->td], 0, 64);
+          s.dc_context[i] = 0;
+        }
+        if (!progressive || s.ss) memset(s.ac_stats[c->ta], 0, 256);
+      }
+      s.fixed_bin = 113;
+      s.arith.src = &src;
+      s.arith.Reset();
+    } else {
+      for (int i = 0; i < ns; ++i) {
+        const Component* c = s.comp[i];
+        const bool dc_needed = !progressive || (s.ss == 0 && s.ah == 0);
+        const bool ac_needed = !progressive || s.ss != 0;
+        if (dc_needed) {
+          if (c->td > 3 || !dc[c->td].present) return false;
+          for (int k = 0; k < dc[c->td].n_symbols; ++k)
+            if (dc[c->td].vals[k] > 15) return false;  // JERR_BAD_HUFF_TABLE
+          s.dc_tbl[i] = &dc[c->td];
+        }
+        if (ac_needed) {
+          if (c->ta > 3 || !ac[c->ta].present) return false;
+          s.ac_tbl[i] = &ac[c->ta];
+        }
+      }
+      s.huff = HuffBits{&src, &s.insufficient};
+    }
+    return true;
+  }
+
+  // One scan: its header (`data`, n bytes), then its entropy-coded data.
+  bool ReadScan(const uint8_t* data, size_t n) {
+    ScanState& s = scan;
+    if (!StartScan(data, n, s)) return false;
+    int restarts_to_go = restart_interval;
+    int16_t* blocks[kMaxBlocksInMcu];
+    int member[kMaxBlocksInMcu];
+    auto mcu = [&](int imcu_row, int n_blocks) {
+      if (!s.insufficient) last_good_imcu_row = imcu_row;
+      if (restart_interval) {
+        if (restarts_to_go == 0) {
+          Restart(s);
+          restarts_to_go = restart_interval;
+        }
+        --restarts_to_go;
+      }
+      return DecodeMcu(s, blocks, member, n_blocks);
+    };
+    if (s.ns == 1) {
+      Component& c = *s.comp[0];
+      member[0] = 0;
       for (int by = 0; by < c.height_in_blocks; ++by) {
         for (int bx = 0; bx < c.width_in_blocks; ++bx) {
-          if (restart_interval) {
-            if (restarts_to_go == 0) restart();
-            --restarts_to_go;
-          }
-          if (br.insufficient) continue;  // out of data: the block stays zero
-          int16_t* block = &c.coefs[(size_t(by) * c.blocks_w + bx) * 64];
-          if (!DecodeBlock(&br, c, block)) return false;
+          blocks[0] = c.Block(by, bx);
+          if (!mcu(by / c.v, 1)) return false;
         }
       }
     } else {
-      int mcus_x = (width + 8 * hmax - 1) / (8 * hmax);
-      int mcus_y = (height + 8 * vmax - 1) / (8 * vmax);
       for (int my = 0; my < mcus_y; ++my) {
         for (int mx = 0; mx < mcus_x; ++mx) {
-          if (restart_interval) {
-            if (restarts_to_go == 0) restart();
-            --restarts_to_go;
-          }
-          if (br.insufficient) continue;
-          for (Component* c : scan) {
-            for (int v = 0; v < c->v; ++v) {
+          int k = 0;
+          for (int i = 0; i < s.ns; ++i) {
+            Component* c = s.comp[i];
+            for (int v = 0; v < c->v; ++v)
               for (int h = 0; h < c->h; ++h) {
-                int by = my * c->v + v, bx = mx * c->h + h;
-                int16_t* block = &c->coefs[(size_t(by) * c->blocks_w + bx) * 64];
-                if (!DecodeBlock(&br, *c, block)) return false;
+                blocks[k] = c->Block(my * c->v + v, mx * c->h + h);
+                member[k++] = i;
               }
-            }
           }
+          if (!mcu(my, k)) return false;
         }
       }
     }
-    pos = br.MarkerPos();
     return true;
   }
 
   // Parse the whole stream; every scan's coefficients land in `comps`.
   bool Parse(bool header_only) {
-    while (pos + 2 <= len) {
-      if (data[pos] != 0xFF) {
-        ++pos;  // garbage between markers: libjpeg skips it with a warning
-        continue;
-      }
-      uint8_t m = data[pos + 1];
-      pos += 2;
-      if (m == 0xFF) {
-        --pos;
-        continue;
-      }
-      if (m == 0xD9) return frame_seen && !header_only;  // EOI
-      if (m == 0x01 || (m >= 0xD0 && m <= 0xD7)) continue;
-      size_t b, n;
-      if (!Segment(&b, &n)) return false;
+    src.pos = 2;  // past SOI
+    for (;;) {
+      // The marker that ended a scan, else the next one.  Past the end of
+      // the data comes a fake EOI, as libjpeg inserts one (with a warning).
+      const int m = src.unread_marker ? src.unread_marker : src.NextMarker();
+      src.unread_marker = 0;
+      if (m == 0xD9) return scans > 0 && !header_only;  // EOI
+      if (m == 0x01 || (m >= 0xD0 && m <= 0xD7)) continue;  // TEM, RSTn
+      if (m == 0xD8) return false;                           // a second SOI
+      const uint8_t* b;
+      size_t n;
+      if (!Segment((m >= 0xE0 && m <= 0xEF) || m == 0xFE || m == 0xDC, &b, &n)) return false;
       switch (m) {
-        case 0xC0:
-        case 0xC1:
+        case 0xC0:  // baseline
+        case 0xC1:  // extended sequential, Huffman
+        case 0xC2:  // progressive, Huffman
+        case 0xC9:  // extended sequential, arithmetic
+        case 0xCA:  // progressive, arithmetic
+          progressive = m == 0xC2 || m == 0xCA;
+          arithmetic = m >= 0xC9;
           if (!ReadSof(b, n)) return false;
           if (header_only) return true;
           break;
         case 0xC4:
           if (!ReadDht(b, n)) return false;
           break;
+        case 0xCC:
+          if (!ReadDac(b, n)) return false;
+          break;
         case 0xDB:
           if (!ReadDqt(b, n)) return false;
           break;
         case 0xDD:
-          if (n < 2) return false;
-          restart_interval = (data[b] << 8) | data[b + 1];
+          if (n != 2) return false;
+          restart_interval = (b[0] << 8) | b[1];
           break;
         case 0xDA:
-          if (!ReadScan(b, n)) return false;
+          if (header_only || !ReadScan(b, n)) return false;
+          break;
+        case 0xDC:  // DNL: skipped, as libjpeg skips it
           break;
         case 0xE0:
-          if (n >= 5 && memcmp(data + b, "JFIF\0", 5) == 0) saw_jfif = true;
+          if (n >= 14 && memcmp(b, "JFIF\0", 5) == 0) saw_jfif = true;
           break;
         case 0xEE:
-          if (n >= 12 && memcmp(data + b, "Adobe", 5) == 0) {
+          if (n >= 12 && memcmp(b, "Adobe", 5) == 0) {
             saw_adobe = true;
-            adobe_transform = data[b + 11];
+            adobe_transform = b[11];
           }
           break;
         default:
-          // Progressive (C2), lossless (C3), hierarchical and arithmetic
-          // coding (C5-CF but C8 and CC) and DNL are not decoded.
-          if ((m >= 0xC2 && m <= 0xCF && m != 0xC4 && m != 0xC8 && m != 0xCC) || m == 0xDC)
-            return false;
-          break;  // APPn, COM and others are skipped
+          // APPn and COM are skipped.  Lossless (C3), differential (C5-C7,
+          // CD-CF), lossless arithmetic (CB) and JPG (C8) frames, and the
+          // reserved markers, fail as they fail in libjpeg.
+          if ((m >= 0xE0 && m <= 0xEF) || m == 0xFE) break;
+          return false;
       }
     }
-    // The data ended without EOI: libjpeg inserts one (with a warning).
-    return frame_seen && !header_only;
   }
 };
-
-// The IDCT's output range limit (jdmaster.c prepare_range_limit_table as
-// IDCT_range_limit indexes it, by x & 1023 for x the descaled sample less
-// 128): x + 128 for x in [-128, 127], 255 above, 0 below, wrapping beyond.
-struct RangeLimit {
-  uint8_t idct[1024];
-  RangeLimit() {
-    for (int i = 0; i < 128; ++i) idct[i] = uint8_t(i + 128);
-    for (int i = 128; i < 512; ++i) idct[i] = 255;
-    for (int i = 512; i < 896; ++i) idct[i] = 0;
-    for (int i = 896; i < 1024; ++i) idct[i] = uint8_t(i - 896);
-  }
-};
-const RangeLimit kRange;
 
 constexpr int kConstBits = 13;
 constexpr int kPass1Bits = 2;
-constexpr int64_t FIX_0_298631336 = 2446;
-constexpr int64_t FIX_0_390180644 = 3196;
-constexpr int64_t FIX_0_541196100 = 4433;
-constexpr int64_t FIX_0_765366865 = 6270;
-constexpr int64_t FIX_0_899976223 = 7373;
-constexpr int64_t FIX_1_175875602 = 9633;
-constexpr int64_t FIX_1_501321110 = 12299;
-constexpr int64_t FIX_1_847759065 = 15137;
-constexpr int64_t FIX_1_961570560 = 16069;
-constexpr int64_t FIX_2_053119869 = 16819;
-constexpr int64_t FIX_2_562915447 = 20995;
-constexpr int64_t FIX_3_072711026 = 25172;
+constexpr int32_t FIX_0_298631336 = 2446;
+constexpr int32_t FIX_0_390180644 = 3196;
+constexpr int32_t FIX_0_541196100 = 4433;
+constexpr int32_t FIX_0_765366865 = 6270;
+constexpr int32_t FIX_0_899976223 = 7373;
+constexpr int32_t FIX_1_175875602 = 9633;
+constexpr int32_t FIX_1_501321110 = 12299;
+constexpr int32_t FIX_1_847759065 = 15137;
+constexpr int32_t FIX_1_961570560 = 16069;
+constexpr int32_t FIX_2_053119869 = 16819;
+constexpr int32_t FIX_2_562915447 = 20995;
+constexpr int32_t FIX_3_072711026 = 25172;
 
-inline int64_t Descale(int64_t x, int n) { return (x + (int64_t(1) << (n - 1))) >> n; }
+inline int16_t Saturate16(int32_t x) { return int16_t(std::min(32767, std::max(-32768, x))); }
 
-// jidctint.c jpeg_idct_islow: one dequantized 8x8 block to samples.
+// One 8-point pass of jidctint.c's accurate integer IDCT, in the
+// arithmetic of libjpeg-turbo's SSE2/AVX2 jsimd_idct_islow, which is what
+// libjpeg decodes with on x86: 16-bit inputs whose sums in0+in4, in0-in4,
+// in3+in7 and in1+in5 wrap at 16 bits, products summed in 32 bits that
+// wrap, then descaled with rounding.  On the data of a valid file nothing
+// wraps and this is jidctint.c's own result.
+inline void IdctPass(const int16_t* in, int32_t* out, int descale) {
+  auto madd = [](int16_t a, int32_t fa, int16_t b, int32_t fb) { return int64_t(a) * fa + int64_t(b) * fb; };
+  const int64_t tmp3 = madd(in[2], FIX_0_541196100 + FIX_0_765366865, in[6], FIX_0_541196100);
+  const int64_t tmp2 = madd(in[2], FIX_0_541196100, in[6], FIX_0_541196100 - FIX_1_847759065);
+  const int64_t t0 = int64_t(int16_t(in[0] + in[4])) * (1 << kConstBits);
+  const int64_t t1 = int64_t(int16_t(in[0] - in[4])) * (1 << kConstBits);
+  const int64_t tmp10 = t0 + tmp3, tmp13 = t0 - tmp3, tmp11 = t1 + tmp2, tmp12 = t1 - tmp2;
+  const int16_t z3 = int16_t(in[3] + in[7]), z4 = int16_t(in[1] + in[5]);
+  const int64_t z3f = madd(z3, FIX_1_175875602 - FIX_1_961570560, z4, FIX_1_175875602);
+  const int64_t z4f = madd(z3, FIX_1_175875602, z4, FIX_1_175875602 - FIX_0_390180644);
+  const int64_t o0 = madd(in[7], FIX_0_298631336 - FIX_0_899976223, in[1], -FIX_0_899976223) + z3f;
+  const int64_t o3 = madd(in[7], -FIX_0_899976223, in[1], FIX_1_501321110 - FIX_0_899976223) + z4f;
+  const int64_t o1 = madd(in[5], FIX_2_053119869 - FIX_2_562915447, in[3], -FIX_2_562915447) + z4f;
+  const int64_t o2 = madd(in[5], -FIX_2_562915447, in[3], FIX_3_072711026 - FIX_2_562915447) + z3f;
+  const int64_t round = int64_t(1) << (descale - 1);
+  auto put = [&](int64_t x) { return int32_t(uint32_t(uint64_t(x + round))) >> descale; };
+  out[0] = put(tmp10 + o3);
+  out[7] = put(tmp10 - o3);
+  out[1] = put(tmp11 + o2);
+  out[6] = put(tmp11 - o2);
+  out[2] = put(tmp12 + o1);
+  out[5] = put(tmp12 - o1);
+  out[3] = put(tmp13 + o0);
+  out[4] = put(tmp13 - o0);
+}
+
+// jidctint.c jpeg_idct_islow as libjpeg-turbo's SIMD computes it: one
+// block dequantized with 16-bit products, columns then rows, each pass's
+// results saturated to 16 bits, the samples to [-128, 127] and then
+// centred.  Where rows 1-7 of every column are zero, the column pass is
+// the DC term shifted left in 16 bits.
 void IdctIslow(const int16_t* coef, const int16_t* quant, uint8_t* out, size_t stride) {
-  int ws[64];
-  for (int col = 0; col < 8; ++col) {
-    const int16_t* in = coef + col;
-    const int16_t* q = quant + col;
-    int* w = ws + col;
-    if (!in[8] && !in[16] && !in[24] && !in[32] && !in[40] && !in[48] && !in[56]) {
-      int dcval = int(int32_t(in[0]) * q[0]) * (1 << kPass1Bits);
-      for (int k = 0; k < 8; ++k) w[8 * k] = dcval;
-      continue;
+  int16_t ws[64];  // transposed: ws[8 * col + row]
+  bool ac_zero = true;
+  for (int i = 8; i < 64 && ac_zero; ++i) ac_zero = coef[i] == 0;
+  if (ac_zero) {
+    for (int col = 0; col < 8; ++col) {
+      const int16_t dc = int16_t(uint16_t(int16_t(coef[col] * quant[col])) << kPass1Bits);
+      for (int row = 0; row < 8; ++row) ws[8 * col + row] = dc;
     }
-    int64_t z2 = int32_t(in[16]) * q[16], z3 = int32_t(in[48]) * q[48];
-    int64_t z1 = (z2 + z3) * FIX_0_541196100;
-    int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
-    int64_t tmp3 = z1 + z2 * FIX_0_765366865;
-    z2 = int32_t(in[0]) * q[0];
-    z3 = int32_t(in[32]) * q[32];
-    int64_t tmp0 = (z2 + z3) * (int64_t(1) << kConstBits);
-    int64_t tmp1 = (z2 - z3) * (int64_t(1) << kConstBits);
-    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-
-    tmp0 = int32_t(in[56]) * q[56];
-    tmp1 = int32_t(in[40]) * q[40];
-    tmp2 = int32_t(in[24]) * q[24];
-    tmp3 = int32_t(in[8]) * q[8];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    int64_t z5 = (z3 + z4) * FIX_1_175875602;
-    tmp0 *= FIX_0_298631336;
-    tmp1 *= FIX_2_053119869;
-    tmp2 *= FIX_3_072711026;
-    tmp3 *= FIX_1_501321110;
-    z1 *= -FIX_0_899976223;
-    z2 *= -FIX_2_562915447;
-    z3 *= -FIX_1_961570560;
-    z4 *= -FIX_0_390180644;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    constexpr int s = kConstBits - kPass1Bits;
-    w[0] = int(Descale(tmp10 + tmp3, s));
-    w[56] = int(Descale(tmp10 - tmp3, s));
-    w[8] = int(Descale(tmp11 + tmp2, s));
-    w[48] = int(Descale(tmp11 - tmp2, s));
-    w[16] = int(Descale(tmp12 + tmp1, s));
-    w[40] = int(Descale(tmp12 - tmp1, s));
-    w[24] = int(Descale(tmp13 + tmp0, s));
-    w[32] = int(Descale(tmp13 - tmp0, s));
+  } else {
+    for (int col = 0; col < 8; ++col) {
+      int16_t in[8];
+      int32_t o[8];
+      for (int k = 0; k < 8; ++k) in[k] = int16_t(coef[8 * k + col] * quant[8 * k + col]);
+      IdctPass(in, o, kConstBits - kPass1Bits);
+      for (int k = 0; k < 8; ++k) ws[8 * col + k] = Saturate16(o[k]);
+    }
   }
-  constexpr int s2 = kConstBits + kPass1Bits + 3;
   for (int row = 0; row < 8; ++row) {
-    const int* w = ws + 8 * row;
-    uint8_t* o = out + size_t(row) * stride;
-    if (!w[1] && !w[2] && !w[3] && !w[4] && !w[5] && !w[6] && !w[7]) {
-      uint8_t v = kRange.idct[int(Descale(w[0], kPass1Bits + 3)) & 1023];
-      for (int k = 0; k < 8; ++k) o[k] = v;
-      continue;
-    }
-    int64_t z2 = w[2], z3 = w[6];
-    int64_t z1 = (z2 + z3) * FIX_0_541196100;
-    int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
-    int64_t tmp3 = z1 + z2 * FIX_0_765366865;
-    int64_t tmp0 = (int64_t(w[0]) + w[4]) * (int64_t(1) << kConstBits);
-    int64_t tmp1 = (int64_t(w[0]) - w[4]) * (int64_t(1) << kConstBits);
-    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+    int16_t in[8];
+    int32_t o[8];
+    for (int k = 0; k < 8; ++k) in[k] = ws[8 * k + row];
+    IdctPass(in, o, kConstBits + kPass1Bits + 3);
+    uint8_t* dst = out + size_t(row) * stride;
+    for (int k = 0; k < 8; ++k) dst[k] = uint8_t(std::min(127, std::max(-128, int(Saturate16(o[k])))) + 128);
+  }
+}
 
-    tmp0 = w[7];
-    tmp1 = w[5];
-    tmp2 = w[3];
-    tmp3 = w[1];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    int64_t z5 = (z3 + z4) * FIX_1_175875602;
-    tmp0 *= FIX_0_298631336;
-    tmp1 *= FIX_2_053119869;
-    tmp2 *= FIX_3_072711026;
-    tmp3 *= FIX_1_501321110;
-    z1 *= -FIX_0_899976223;
-    z2 *= -FIX_2_562915447;
-    z3 *= -FIX_1_961570560;
-    z4 *= -FIX_0_390180644;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    o[0] = kRange.idct[int(Descale(tmp10 + tmp3, s2)) & 1023];
-    o[7] = kRange.idct[int(Descale(tmp10 - tmp3, s2)) & 1023];
-    o[1] = kRange.idct[int(Descale(tmp11 + tmp2, s2)) & 1023];
-    o[6] = kRange.idct[int(Descale(tmp11 - tmp2, s2)) & 1023];
-    o[2] = kRange.idct[int(Descale(tmp12 + tmp1, s2)) & 1023];
-    o[5] = kRange.idct[int(Descale(tmp12 - tmp1, s2)) & 1023];
-    o[3] = kRange.idct[int(Descale(tmp13 + tmp0, s2)) & 1023];
-    o[4] = kRange.idct[int(Descale(tmp13 - tmp0, s2)) & 1023];
+// jdcoefct.c (libjpeg-turbo 2.1) smoothing_ok: whether a progressive
+// file's output pass smooths its blocks, and the coefficient bits it
+// reads, latched per component (and those before each component's latest
+// scan, for the rows its last scan did not reach).
+constexpr int kSavedCoefs = 10;
+constexpr int kSmoothPos[kSavedCoefs] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+
+bool SmoothingOk(const JpegDecoder& d, int (*latch)[kSavedCoefs], int (*prev_latch)[kSavedCoefs]) {
+  if (!d.progressive) return false;
+  bool useful = false;
+  for (size_t ci = 0; ci < d.comps.size(); ++ci) {
+    const Component& c = d.comps[ci];
+    if (!c.quant_latched) return false;
+    for (int pos : kSmoothPos)
+      if (c.quant[pos] == 0) return false;
+    if (c.coef_bits[0] < 0) return false;
+    latch[ci][0] = c.coef_bits[0];
+    for (int k = 1; k < kSavedCoefs; ++k) {
+      prev_latch[ci][k] = d.scans > 1 ? c.prev_coef_bits[k] : -1;
+      latch[ci][k] = c.coef_bits[k];
+      if (c.coef_bits[k] != 0) useful = true;
+    }
+  }
+  return useful;
+}
+
+// The estimate of a coefficient from `num` (jdcoefct.c): rounded, and
+// below the bit the coefficient is known to.
+inline int16_t SmoothEstimate(int64_t num, int64_t q, int al) {
+  int pred;
+  if (num >= 0) {
+    pred = int(((q << 7) + num) / (q << 8));
+    if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+  } else {
+    pred = int(((q << 7) - num) / (q << 8));
+    if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+    pred = -pred;
+  }
+  return int16_t(pred);
+}
+
+// jdcoefct.c decompress_smooth_data (libjpeg-turbo 2.1): each block's
+// first 9 AC coefficients still zero and not known in full are estimated
+// from the DC values of the 5x5 blocks around it, and where no AC
+// coefficient has arrived the DC too; then the IDCT.  Rows and columns
+// past the edges repeat as libjpeg repeats them, by iMCU row.
+void SmoothAndIdct(const Component& c, const int* bits, const int* prev_bits, int last_good_row,
+                   int total_imcu_rows, uint8_t* plane, size_t stride) {
+  const int v = c.v;
+  const int last_row = total_imcu_rows - 1;
+  const int last_col = c.width_in_blocks - 1;
+  auto dc = [&](int by, int bx) { return int(c.coefs[(size_t(by) * c.blocks_w + bx) * 64]); };
+  const int64_t Q00 = c.quant[0], Q01 = c.quant[1], Q10 = c.quant[8], Q20 = c.quant[16], Q11 = c.quant[9],
+                Q02 = c.quant[2], Q03 = c.quant[3], Q12 = c.quant[10], Q21 = c.quant[17], Q30 = c.quant[24];
+  int16_t ws[64];
+  for (int row = 0; row < total_imcu_rows; ++row) {
+    int block_rows = v;
+    if (row == last_row) {
+      block_rows = c.height_in_blocks % v;
+      if (block_rows == 0) block_rows = v;
+    }
+    const int* cb = row > last_good_row ? prev_bits : bits;
+    bool change_dc = true;
+    for (int k = 1; k <= 9; ++k) change_dc = change_dc && cb[k] == -1;
+    for (int br = 0; br < block_rows; ++br) {
+      const int r = row * v + br;
+      const int prev = br > 0 || row > 0 ? r - 1 : r;
+      const int prev_prev = br > 1 || row > 1 ? r - 2 : prev;
+      const int next = br < block_rows - 1 || row < last_row ? r + 1 : r;
+      const int next_next = br < block_rows - 2 || row + 1 < last_row ? r + 2 : next;
+      const int rows[5] = {prev_prev, prev, r, next, next_next};
+      int DC[26];  // DC[1..25]: the 5x5 window, row by row
+      for (int i = 0; i < 5; ++i)
+        for (int j = 1; j <= 5; ++j) DC[5 * i + j] = dc(rows[i], 0);
+      for (int bx = 0; bx <= last_col; ++bx) {
+        memcpy(ws, &c.coefs[(size_t(r) * c.blocks_w + bx) * 64], sizeof(ws));
+        if (bx == 0 && bx < last_col)
+          for (int i = 0; i < 5; ++i) DC[5 * i + 4] = dc(rows[i], bx + 1);
+        if (bx + 1 < last_col)
+          for (int i = 0; i < 5; ++i) DC[5 * i + 5] = dc(rows[i], bx + 2);
+        int al;
+        if ((al = cb[1]) != 0 && ws[1] == 0) {  // AC01
+          int64_t num = Q00 * (change_dc ? (-DC[1] - DC[2] + DC[4] + DC[5] - 3 * DC[6] + 13 * DC[7] -
+                                            13 * DC[9] + 3 * DC[10] - 3 * DC[11] + 38 * DC[12] - 38 * DC[14] +
+                                            3 * DC[15] - 3 * DC[16] + 13 * DC[17] - 13 * DC[19] + 3 * DC[20] -
+                                            DC[21] - DC[22] + DC[24] + DC[25])
+                                         : (-7 * DC[11] + 50 * DC[12] - 50 * DC[14] + 7 * DC[15]));
+          ws[1] = SmoothEstimate(num, Q01, al);
+        }
+        if ((al = cb[2]) != 0 && ws[8] == 0) {  // AC10
+          int64_t num = Q00 * (change_dc ? (-DC[1] - 3 * DC[2] - 3 * DC[3] - 3 * DC[4] - DC[5] - DC[6] +
+                                            13 * DC[7] + 38 * DC[8] + 13 * DC[9] - DC[10] + DC[16] -
+                                            13 * DC[17] - 38 * DC[18] - 13 * DC[19] + DC[20] + DC[21] +
+                                            3 * DC[22] + 3 * DC[23] + 3 * DC[24] + DC[25])
+                                         : (-7 * DC[3] + 50 * DC[8] - 50 * DC[18] + 7 * DC[23]));
+          ws[8] = SmoothEstimate(num, Q10, al);
+        }
+        if ((al = cb[3]) != 0 && ws[16] == 0) {  // AC20
+          int64_t num = Q00 * (change_dc ? (DC[3] + 2 * DC[7] + 7 * DC[8] + 2 * DC[9] - 5 * DC[12] - 14 * DC[13] -
+                                            5 * DC[14] + 2 * DC[17] + 7 * DC[18] + 2 * DC[19] + DC[23])
+                                         : (-DC[3] + 13 * DC[8] - 24 * DC[13] + 13 * DC[18] - DC[23]));
+          ws[16] = SmoothEstimate(num, Q20, al);
+        }
+        if ((al = cb[4]) != 0 && ws[9] == 0) {  // AC11
+          int64_t num = Q00 * (change_dc ? (-DC[1] + DC[5] + 9 * DC[7] - 9 * DC[9] - 9 * DC[17] + 9 * DC[19] +
+                                            DC[21] - DC[25])
+                                         : (DC[10] + DC[16] - 10 * DC[17] + 10 * DC[19] - DC[2] - DC[20] +
+                                            DC[22] - DC[24] + DC[4] - DC[6] + 10 * DC[7] - 10 * DC[9]));
+          ws[9] = SmoothEstimate(num, Q11, al);
+        }
+        if ((al = cb[5]) != 0 && ws[2] == 0) {  // AC02
+          int64_t num = Q00 * (change_dc ? (2 * DC[7] - 5 * DC[8] + 2 * DC[9] + DC[11] + 7 * DC[12] -
+                                            14 * DC[13] + 7 * DC[14] + DC[15] + 2 * DC[17] - 5 * DC[18] +
+                                            2 * DC[19])
+                                         : (-DC[11] + 13 * DC[12] - 24 * DC[13] + 13 * DC[14] - DC[15]));
+          ws[2] = SmoothEstimate(num, Q02, al);
+        }
+        if (change_dc) {
+          if ((al = cb[6]) != 0 && ws[3] == 0)  // AC03
+            ws[3] = SmoothEstimate(Q00 * (DC[7] - DC[9] + 2 * DC[12] - 2 * DC[14] + DC[17] - DC[19]), Q03, al);
+          if ((al = cb[7]) != 0 && ws[10] == 0)  // AC12
+            ws[10] = SmoothEstimate(Q00 * (DC[7] - 3 * DC[8] + DC[9] - DC[17] + 3 * DC[18] - DC[19]), Q12, al);
+          if ((al = cb[8]) != 0 && ws[17] == 0)  // AC21
+            ws[17] = SmoothEstimate(Q00 * (DC[7] - DC[9] - 3 * DC[12] + 3 * DC[14] + DC[17] - DC[19]), Q21, al);
+          if ((al = cb[9]) != 0 && ws[24] == 0)  // AC30
+            ws[24] = SmoothEstimate(Q00 * (DC[7] + 2 * DC[8] + DC[9] - DC[17] - 2 * DC[18] - DC[19]), Q30, al);
+          // The DC value, by a Gaussian-like kernel that keeps the average.
+          int64_t num = Q00 * (-2 * DC[1] - 6 * DC[2] - 8 * DC[3] - 6 * DC[4] - 2 * DC[5] - 6 * DC[6] +
+                               6 * DC[7] + 42 * DC[8] + 6 * DC[9] - 6 * DC[10] - 8 * DC[11] + 42 * DC[12] +
+                               152 * DC[13] + 42 * DC[14] - 8 * DC[15] - 6 * DC[16] + 6 * DC[17] +
+                               42 * DC[18] + 6 * DC[19] - 6 * DC[20] - 2 * DC[21] - 6 * DC[22] - 8 * DC[23] -
+                               6 * DC[24] - 2 * DC[25]);
+          ws[0] = SmoothEstimate(num, Q00, 0);
+        }
+        IdctIslow(ws, c.quant, plane + size_t(r) * 8 * stride + size_t(bx) * 8, stride);
+        for (int i = 0; i < 5; ++i)
+          for (int j = 1; j <= 4; ++j) DC[5 * i + j] = DC[5 * i + j + 1];
+      }
+    }
   }
 }
 
@@ -716,9 +1446,10 @@ std::vector<uint8_t> Upsample(const std::vector<uint8_t>& plane, size_t stride, 
 }
 
 bool DecodeJpeg(const uint8_t* bytes, size_t len, Image* out, int* width, int* height) {
-  JpegDecoder d;
-  d.data = bytes;
-  d.len = len;
+  std::unique_ptr<JpegDecoder> owner(new JpegDecoder());
+  JpegDecoder& d = *owner;
+  d.src.data = bytes;
+  d.src.len = len;
   if (!out) {
     if (!d.Parse(true)) return false;
     *width = d.width;
@@ -744,21 +1475,28 @@ bool DecodeJpeg(const uint8_t* bytes, size_t len, Image* out, int* width, int* h
   } else {
     return false;  // two or four components: no conversion to RGB
   }
-  for (const Component& c : d.comps) {
+  for (const Component& c : d.comps)
     if (d.hmax % c.h || d.vmax % c.v) return false;  // fractional sampling
-    if (!c.quant_latched) return false;             // a component no scan carried
-  }
 
+  int latch[4][kSavedCoefs], prev_latch[4][kSavedCoefs];
+  const bool smooth = SmoothingOk(d, latch, prev_latch);
   const int W = d.width, H = d.height;
   std::vector<std::vector<uint8_t>> full(nc);
   for (int ci = 0; ci < nc; ++ci) {
-    const Component& c = d.comps[ci];
+    Component& c = d.comps[ci];
+    // A component no scan carried has no quantization table latched: its
+    // blocks dequantize to zero, mid-gray (jddctmgr.c).
+    if (!c.quant_latched) std::fill(c.quant, c.quant + 64, int16_t(0));
     size_t stride = size_t(c.blocks_w) * 8;
     std::vector<uint8_t> plane(stride * size_t(c.blocks_h) * 8);
-    for (int by = 0; by < c.height_in_blocks; ++by)
-      for (int bx = 0; bx < c.width_in_blocks; ++bx)
-        IdctIslow(&c.coefs[(size_t(by) * c.blocks_w + bx) * 64], c.quant,
-                  plane.data() + size_t(by) * 8 * stride + size_t(bx) * 8, stride);
+    if (smooth) {
+      SmoothAndIdct(c, latch[ci], prev_latch[ci], d.last_good_imcu_row, d.TotalImcuRows(), plane.data(),
+                    stride);
+    } else {
+      for (int by = 0; by < c.height_in_blocks; ++by)
+        for (int bx = 0; bx < c.width_in_blocks; ++bx)
+          IdctIslow(c.Block(by, bx), c.quant, plane.data() + size_t(by) * 8 * stride + size_t(bx) * 8, stride);
+    }
     if (nc == 1) {
       full[ci].resize(size_t(W) * H);
       for (int y = 0; y < H; ++y) memcpy(&full[ci][size_t(y) * W], &plane[size_t(y) * stride], size_t(W));
@@ -980,14 +1718,24 @@ bool DecodePng(const uint8_t* bytes, size_t len, Image* out, int* width_out, int
 // Files, resize, batches
 // ===========================================================================
 
+// A frame that fails, or whose buffers cannot be allocated, is a failed
+// frame: no exception leaves the library.
 bool Decode(const uint8_t* bytes, size_t len, Image* out) {
-  return IsJpeg(bytes, len) ? DecodeJpeg(bytes, len, out, nullptr, nullptr)
-                            : DecodePng(bytes, len, out, nullptr, nullptr);
+  try {
+    return IsJpeg(bytes, len) ? DecodeJpeg(bytes, len, out, nullptr, nullptr)
+                              : DecodePng(bytes, len, out, nullptr, nullptr);
+  } catch (...) {
+    return false;
+  }
 }
 
 bool Probe(const uint8_t* bytes, size_t len, int* width, int* height) {
-  return IsJpeg(bytes, len) ? DecodeJpeg(bytes, len, nullptr, width, height)
-                            : DecodePng(bytes, len, nullptr, width, height);
+  try {
+    return IsJpeg(bytes, len) ? DecodeJpeg(bytes, len, nullptr, width, height)
+                              : DecodePng(bytes, len, nullptr, width, height);
+  } catch (...) {
+    return false;
+  }
 }
 
 bool ReadFile(const char* path, std::vector<uint8_t>* bytes) {
@@ -1005,7 +1753,11 @@ bool ReadFile(const char* path, std::vector<uint8_t>* bytes) {
 }
 
 bool DecodeFile(const char* path, std::vector<uint8_t>* bytes, Image* out) {
-  return ReadFile(path, bytes) && Decode(bytes->data(), bytes->size(), out);
+  try {
+    return ReadFile(path, bytes) && Decode(bytes->data(), bytes->size(), out);
+  } catch (...) {
+    return false;
+  }
 }
 
 // native/dream_loader.cpp's ResizeBilinear, operation for operation

@@ -3,7 +3,12 @@
 The counterpart of ``dream_tpu/data/native_loader.py``: JPEG and PNG
 frames decoded to uint8 RGB by a pool of C++ threads, without the GIL.
 The decoders are the port's own, bit-equal to libjpeg's and libpng's
-(the card's machine has neither library); PNG inflates through zlib.  The
+(the card's machine has neither library); PNG inflates through zlib.  JPEG
+is read as ``dream_tpu``'s native loader (libjpeg-turbo 2.1) reads it:
+baseline, extended sequential and progressive frames, Huffman- or
+arithmetic-coded, and a file cut short, with libjpeg's block smoothing of a
+progressive frame whose scans are missing.  What that loader refuses fails
+here too: lossless and hierarchical frames, 12-bit samples and CMYK.  The
 library is built with the host's C++ compiler at first use
 (:mod:`dream_tpu_torch.ops.cuda_build`) and loaded once a process.  There
 is no fallback: a library that does not build raises with the compiler's

@@ -4,9 +4,12 @@ reading and writing on the standard library's ``zlib`` and numpy.
 :func:`decode_image` is the port's decoder of a frame's bytes: it reads the
 magic bytes, as ``native/dream_loader.cpp`` ``DecodeFile`` does, and sends
 JPEG and PNG to the host loader (:mod:`dream_tpu_torch.data.native_loader`,
-libjpeg and libpng), which decodes them as ``dream_tpu``'s native loader
-and PIL's ``convert("RGB")`` do; any other format raises ``ValueError``
-naming it.  :func:`read_image` reads a file and calls it.
+its own decoders equal to libjpeg's and libpng's), which decodes them as
+``dream_tpu``'s native loader and PIL's ``convert("RGB")`` do: every JPEG
+frame type libjpeg reads (baseline, sequential and progressive, Huffman or
+arithmetic); a JPEG that loader refuses (lossless, 12-bit, CMYK) and any
+other format raise ``ValueError`` naming the source.  :func:`read_image`
+reads a file and calls it.
 
 :func:`decode_png` is the plain route, numpy and ``zlib`` alone, which the
 ``torch.export`` artifacts' callers and the PNG-only paths keep: it

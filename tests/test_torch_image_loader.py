@@ -11,8 +11,15 @@
   default route.
 - JPEG: 4:4:4, 4:2:2 and 4:2:0 at quality 75-100, with Huffman tables
   optimized and with restart markers, at 640x480 and at odd sizes, and
-  grayscale, bit for bit as libjpeg (the native loader) and PIL decode
-  them.  A progressive JPEG does not decode.
+  grayscale, baseline and progressive, bit for bit as libjpeg-turbo 2.1.5
+  (the native loader) and PIL decode them.  A progressive file cut after
+  each of its scans, or inside one, decodes as libjpeg decodes it, block
+  smoothing included; arithmetic-coded files, sequential and progressive
+  (written by libjpeg through a small C encoder compiled here), with and
+  without restarts and DAC conditioning, likewise.  CMYK, lossless (SOF3
+  and SOF11) and 12-bit files fail in both loaders; DNL is skipped, and a
+  sequential file without Huffman tables takes the standard ones, as in
+  libjpeg.
 - The resize path (a frame of another size than asked for) bit for bit as
   the native loader's.
 - ``decode_bytes`` equals ``decode_batch``; 1 and 8 threads agree; a
@@ -28,12 +35,13 @@
 import io
 import os
 import struct
+import subprocess
 import threading
 import zlib
 
 import numpy as np
 import pytest
-from PIL import Image
+from PIL import Image, ImageFile
 
 from dream_tpu.data import dataset as jax_data
 from dream_tpu.data import native_loader as jax_loader
@@ -160,12 +168,278 @@ def test_gray_and_progressive_jpeg(tmp_path):
     ours, native = _both(gray, 45, 61)
     np.testing.assert_array_equal(ours, native)
     np.testing.assert_array_equal(ours, np.asarray(Image.open(gray).convert("RGB")))
-    progressive = str(tmp_path / "progressive.jpg")
-    Image.fromarray(_scene(45, 61)).save(progressive, quality=90, progressive=True)
-    with pytest.raises(IOError, match="failed on 1/1 frames"):
-        native_loader.decode_batch([progressive], 45, 61)
-    with pytest.raises(ValueError, match="JPEG"):
-        decode_image(open(progressive, "rb").read(), progressive)
+    for name, image in (("progressive", _scene(45, 61)), ("progressive_gray", _scene(45, 61)[..., 1])):
+        path = str(tmp_path / f"{name}.jpg")
+        Image.fromarray(image).save(path, quality=90, progressive=True)
+        ours, native = _both(path, 45, 61)
+        np.testing.assert_array_equal(ours, native, err_msg=name)
+        np.testing.assert_array_equal(ours, np.asarray(Image.open(path).convert("RGB")), err_msg=name)
+        with open(path, "rb") as f:
+            np.testing.assert_array_equal(decode_image(f.read(), path), ours, err_msg=name)
+
+
+def _scan_offsets(data):
+    """The offsets of a JPEG's SOS markers (PIL's marker segments carry no
+    0xFFDA pair, and entropy-coded data never does)."""
+    return [i for i in range(2, len(data) - 1) if data[i] == 0xFF and data[i + 1] == 0xDA]
+
+
+@pytest.mark.parametrize("subsampling", [0, 1, 2], ids=["444", "422", "420"])
+@pytest.mark.parametrize("quality,extra", [(75, {}), (90, {}), (100, {}), (90, {"optimize": True}),
+                                           (85, {"restart_marker_blocks": 3}),
+                                           (85, {"restart_marker_rows": 1})],
+                         ids=["q75", "q90", "q100", "q90opt", "q85rstblocks", "q85rstrows"])
+def test_progressive_jpeg_matches_libjpeg_and_pil(subsampling, quality, extra, tmp_path, monkeypatch):
+    # PIL holds a whole progressive file in its output buffer.
+    monkeypatch.setattr(ImageFile, "MAXBLOCK", 8 << 20)
+    for h, w in ((480, 640), (45, 61), (17, 9), (1, 1)):
+        path = str(tmp_path / f"f{h}.jpg")
+        Image.fromarray(_scene(h, w)).save(path, quality=quality, subsampling=subsampling, progressive=True,
+                                           **extra)
+        with open(path, "rb") as f:
+            assert b"\xff\xc2" in f.read()
+        ours, native = _both(path, h, w)
+        np.testing.assert_array_equal(ours, native, err_msg=f"{h}x{w}")
+        np.testing.assert_array_equal(ours, np.asarray(Image.open(path).convert("RGB")), err_msg=f"{h}x{w}")
+
+
+@pytest.mark.parametrize("subsampling", [0, 1, 2], ids=["444", "422", "420"])
+def test_progressive_jpeg_cut_short(subsampling, tmp_path):
+    """PIL's progressive file (libjpeg's standard 10-scan script) cut after
+    each of its first 9 scans, EOI appended: coefficients miss their last
+    bits, so libjpeg smooths the blocks (jdcoefct.c), and the port with it.
+    Cut inside a scan, the rest of it stays as the earlier scans left it.
+
+    PIL bundles libjpeg-turbo 3.x, whose smoothing takes the 5x5 window's
+    rows clamped to a component's block rows; 2.1.5, the native loader's,
+    decides by iMCU row and repeats a nearer row at the first two and last
+    two iMCU rows of a component sampled 2 vertically (luma in 4:2:0).
+    There the two references part, and the port follows ``dream_tpu``'s
+    native route."""
+    path = str(tmp_path / "full.jpg")
+    Image.fromarray(_scene(48, 64)).save(path, quality=90, subsampling=subsampling, progressive=True)
+    with open(path, "rb") as f:
+        data = f.read()
+    sos = _scan_offsets(data)
+    assert len(sos) == 10
+    cut = str(tmp_path / "cut.jpg")
+    pil_parts = []
+    for k in range(1, 10):
+        with open(cut, "wb") as f:
+            f.write(data[:sos[k]] + b"\xff\xd9")
+        ours, native = _both(cut, 48, 64)
+        np.testing.assert_array_equal(ours, native, err_msg=f"after {k} scans")
+        pil = np.asarray(Image.open(cut).convert("RGB"))
+        if subsampling != 2:
+            np.testing.assert_array_equal(ours, pil, err_msg=f"after {k} scans")
+        else:
+            pil_parts.append(int(np.abs(ours.astype(int) - pil).max()))
+    if subsampling == 2:
+        assert 0 < pil_parts[0] <= 8 and max(pil_parts) <= 8, pil_parts
+    # With restart markers, a cut leaves the next restart's marker missing:
+    # the rest of the scan is skipped, not decoded from zero bits.
+    restarts = str(tmp_path / "restarts.jpg")
+    Image.fromarray(_scene(48, 64)).save(restarts, quality=90, subsampling=subsampling, progressive=True,
+                                         restart_marker_blocks=3)
+    with open(restarts, "rb") as f:
+        restart_data = f.read()
+    for label, source in (("", data), ("restarts, ", restart_data)):
+        for fraction in (0.45, 0.8):  # inside the 4th and the 9th scans
+            body = source[:int(len(source) * fraction)]
+            for name, cut_data in (("no EOI", body), ("EOI", body + b"\xff\xd9")):
+                with open(cut, "wb") as f:
+                    f.write(cut_data)
+                ours, native = _both(cut, 48, 64)
+                np.testing.assert_array_equal(ours, native, err_msg=f"{label}cut at {fraction}, {name}")
+                if name == "no EOI":
+                    with pytest.raises(OSError, match="truncated"):  # PIL refuses a file without EOI
+                        Image.open(cut).convert("RGB")
+                elif subsampling != 2:
+                    np.testing.assert_array_equal(ours, np.asarray(Image.open(cut).convert("RGB")),
+                                                  err_msg=f"{label}cut at {fraction}")
+
+
+# Writes a raw image as JPEG through libjpeg with the settings PIL does not
+# expose: arithmetic coding (with DAC conditioning values), progression,
+# restart rows, the luma sampling factors.
+_JPEG_ENCODER_C = r"""
+#include <stdio.h>
+#include <stdlib.h>
+#include <jpeglib.h>
+int main(int argc, char** argv) {
+  if (argc != 15) return 2;
+  int w = atoi(argv[2]), h = atoi(argv[3]), nc = atoi(argv[4]);
+  size_t n = (size_t)w * h * nc;
+  unsigned char* px = malloc(n);
+  FILE* in = fopen(argv[1], "rb");
+  if (!in || fread(px, 1, n, in) != n) return 3;
+  fclose(in);
+  struct jpeg_compress_struct c;
+  struct jpeg_error_mgr e;
+  c.err = jpeg_std_error(&e);
+  jpeg_create_compress(&c);
+  FILE* out = fopen(argv[5], "wb");
+  jpeg_stdio_dest(&c, out);
+  c.image_width = w;
+  c.image_height = h;
+  c.input_components = nc;
+  c.in_color_space = nc == 3 ? JCS_RGB : JCS_GRAYSCALE;
+  jpeg_set_defaults(&c);
+  jpeg_set_quality(&c, atoi(argv[6]), TRUE);
+  c.arith_code = atoi(argv[7]) ? TRUE : FALSE;
+  if (atoi(argv[8])) jpeg_simple_progression(&c);
+  c.restart_in_rows = atoi(argv[9]);
+  if (nc == 3) {
+    c.comp_info[0].h_samp_factor = atoi(argv[10]);
+    c.comp_info[0].v_samp_factor = atoi(argv[11]);
+  }
+  for (int i = 0; i < NUM_ARITH_TBLS; i++) {
+    c.arith_dc_L[i] = atoi(argv[12]);
+    c.arith_dc_U[i] = atoi(argv[13]);
+    c.arith_ac_K[i] = atoi(argv[14]);
+  }
+  jpeg_start_compress(&c, TRUE);
+  while (c.next_scanline < c.image_height) {
+    JSAMPROW row = px + (size_t)c.next_scanline * w * nc;
+    jpeg_write_scanlines(&c, &row, 1);
+  }
+  jpeg_finish_compress(&c);
+  jpeg_destroy_compress(&c);
+  fclose(out);
+  return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def jpeg_encoder(tmp_path_factory):
+    """The C encoder above, built against the libjpeg ``dream_tpu``'s native
+    loader links (its build is asserted above); a failed build fails."""
+    build = tmp_path_factory.mktemp("jpeg_encoder")
+    (build / "encode.c").write_text(_JPEG_ENCODER_C)
+    made = subprocess.run(["gcc", "-O2", str(build / "encode.c"), "-o", str(build / "encode"), "-ljpeg"],
+                          capture_output=True, text=True)
+    assert made.returncode == 0, made.stderr
+    return str(build / "encode")
+
+
+def _libjpeg_encode(encoder, image, path, quality=90, arithmetic=True, progressive=False, restart_rows=0,
+                    luma=(2, 2), dac=(0, 1, 5)):
+    raw = path + ".raw"
+    image.tofile(raw)
+    subprocess.run([encoder, raw, str(image.shape[1]), str(image.shape[0]), str(1 if image.ndim == 2 else 3),
+                    path, str(quality), str(int(arithmetic)), str(int(progressive)), str(restart_rows),
+                    str(luma[0]), str(luma[1]), *map(str, dac)], check=True)
+
+
+ARITHMETIC_CASES = {
+    "444": {"luma": (1, 1)},
+    "420": {},
+    "gray": {"gray": True},
+    "restart_rows": {"restart_rows": 1},
+    # DC conditioning L=2, U=5 and AC K=12 (the defaults are 0, 1 and 5).
+    "dac": {"restart_rows": 2, "dac": (2, 5, 12)},
+}
+
+
+@pytest.mark.parametrize("progressive", [False, True], ids=["sequential", "progressive"])
+@pytest.mark.parametrize("case", list(ARITHMETIC_CASES))
+def test_arithmetic_jpeg_matches_libjpeg_and_pil(case, progressive, jpeg_encoder, tmp_path):
+    options = dict(ARITHMETIC_CASES[case])
+    gray = options.pop("gray", False)
+    for h, w in ((480, 640), (45, 61), (9, 17)):
+        image = _scene(h, w)[..., 1].copy() if gray else _scene(h, w)
+        path = str(tmp_path / f"f{h}.jpg")
+        _libjpeg_encode(jpeg_encoder, image, path, progressive=progressive, **options)
+        with open(path, "rb") as f:
+            data = f.read()
+        assert (b"\xff\xca" if progressive else b"\xff\xc9") in data
+        dac = data[data.index(b"\xff\xcc"):][:6]  # the first DAC: DC table 0
+        assert dac[4:6] == bytes([0, 0x52 if case == "dac" else 0x10]), dac
+        ours, native = _both(path, h, w)
+        np.testing.assert_array_equal(ours, native, err_msg=f"{h}x{w}")
+        if len(data) > ImageFile.MAXBLOCK:
+            # PIL feeds libjpeg MAXBLOCK bytes at a time, and libjpeg's
+            # arithmetic decoder cannot wait for more (JERR_CANT_SUSPEND):
+            # PIL, dream_tpu's server route, fails a larger file.
+            with pytest.raises(OSError, match="broken data stream"):
+                Image.open(path).convert("RGB")
+            continue
+        np.testing.assert_array_equal(ours, np.asarray(Image.open(path).convert("RGB")), err_msg=f"{h}x{w}")
+        if h == 45:
+            # Cut in the middle of the last scan's data: the QM decoder
+            # reads zero bytes past the data and decodes on, and libjpeg's
+            # SIMD IDCT saturates the coefficients that makes.
+            last = _scan_offsets(data)[-1]
+            start = last + 2 + (data[last + 2] << 8 | data[last + 3])
+            cut = str(tmp_path / "cut.jpg")
+            with open(cut, "wb") as f:
+                f.write(data[:(start + len(data)) // 2] + b"\xff\xd9")
+            ours, native = _both(cut, h, w)
+            np.testing.assert_array_equal(ours, native, err_msg="cut")
+
+
+def _patched_baseline(tmp_path, case):
+    path = str(tmp_path / f"{case}.jpg")
+    if case == "CMYK":
+        Image.fromarray(_scene(45, 61)).convert("CMYK").save(path, quality=90)
+        return path
+    Image.fromarray(_scene(45, 61)).save(path, quality=90)
+    with open(path, "rb") as f:
+        data = bytearray(f.read())
+    sof = data.index(b"\xff\xc0")
+    if case == "12-bit":
+        data[sof + 4] = 12  # the sample precision
+    else:
+        data[sof + 1] = {"SOF3": 0xC3, "SOF11": 0xCB}[case]
+    with open(path, "wb") as f:
+        f.write(bytes(data))
+    return path
+
+
+@pytest.mark.parametrize("case", ["CMYK", "SOF3", "SOF11", "12-bit"])
+def test_jpeg_refused_as_the_native_loader_refuses(case, tmp_path):
+    path = _patched_baseline(tmp_path, case)
+    for loader in (native_loader, jax_loader):
+        with pytest.raises(IOError, match="failed on 1/1 frames"):
+            loader.decode_batch([path], 45, 61)
+    with open(path, "rb") as f:
+        with pytest.raises(ValueError, match="JPEG"):
+            decode_image(f.read(), path)
+    if case == "CMYK":  # PIL, dream_tpu's server route, reads it (ROADMAP.md: a departure)
+        assert np.asarray(Image.open(path).convert("RGB")).shape == (45, 61, 3)
+
+
+@pytest.mark.parametrize("case", ["DNL", "no_DHT", "JPG", "second_SOS"])
+def test_jpeg_markers_as_libjpeg_reads_them(case, tmp_path):
+    """A DNL segment is skipped; a sequential file without DHT takes the
+    standard tables (PIL's unoptimized ones are those); the reserved JPG
+    marker, and a second scan after one that held every component, fail."""
+    path = str(tmp_path / "f.jpg")
+    Image.fromarray(_scene(45, 61)).save(path, quality=90)
+    with open(path, "rb") as f:
+        data = f.read()
+    sos, eoi, sof = data.index(b"\xff\xda"), len(data) - 2, data.index(b"\xff\xc0")
+    if case == "DNL":
+        data = data[:eoi] + b"\xff\xdc\x00\x04\x00\x2d" + data[eoi:]
+    elif case == "no_DHT":
+        while b"\xff\xc4" in data:
+            i = data.index(b"\xff\xc4")
+            data = data[:i] + data[i + 2 + (data[i + 2] << 8 | data[i + 3]):]
+    elif case == "JPG":
+        data = data[:sof] + b"\xff\xc8\x00\x04\x00\x00" + data[sof:]
+    else:
+        data = data[:eoi] + data[sos:eoi] + data[eoi:]
+    with open(path, "wb") as f:
+        f.write(data)
+    if case in ("DNL", "no_DHT"):
+        ours, native = _both(path, 45, 61)
+        np.testing.assert_array_equal(ours, native)
+        np.testing.assert_array_equal(ours, np.asarray(Image.open(path).convert("RGB")))
+    else:
+        for loader in (native_loader, jax_loader):
+            with pytest.raises(IOError, match="failed on 1/1 frames"):
+                loader.decode_batch([path], 45, 61)
 
 
 @pytest.mark.parametrize("kind", ["png", "jpg"])
@@ -223,13 +497,14 @@ def test_decode_image_dispatch():
         decode_image(encode_png(frame)[:-30], "body")
 
 
-def test_dataset_on_jpeg_copy_matches_dream_tpu(tmp_path):
+@pytest.mark.parametrize("progressive", [False, True], ids=["baseline", "progressive"])
+def test_dataset_on_jpeg_copy_matches_dream_tpu(progressive, tmp_path):
     path = str(tmp_path / "panda_jpg")
     jax_generate_synthetic_ndds(path, n_frames=6, image_resolution=(160, 120), seed=21)
     for f in sorted(os.listdir(path)):
         if f.endswith(".png"):
             src = os.path.join(path, f)
-            Image.open(src).save(src[:-4] + ".jpg", quality=90)
+            Image.open(src).save(src[:-4] + ".jpg", quality=90, progressive=progressive)
             os.remove(src)
     args = ("panda", NAMES, (64, 64), (16, 16), {"mean": [0.5] * 3, "stdev": [0.5] * 3},
             "shrink-and-crop")
