@@ -11,14 +11,23 @@
   at least 4 even ranks, model-) parallel train step of a 2-stage cascade
   at 64x64 with 4 keypoints, asserting that a conv is split over the model
   axis; the sharded inference; then one pipelined train step over 2 stages.
+- :func:`split_gradient_reading`: where a channel-split step's float32
+  gradients part from the unsharded step's, leaf by leaf against float64,
+  with the discrete choices of each forward (each conv output's sign, which
+  the ReLU after it reads, and each 2x2 max-pool's pick;
+  :func:`record_decisions`) counted where two runs part
+  (``scripts/split_gradient_layers.py``, ``chip_smoke.py`` phase 32).
 """
 
 from __future__ import annotations
 
+import math
 import time
-from typing import Any, Dict, List, Sequence
+from typing import Any, Callable, Dict, List, Sequence, Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from dream_tpu_torch.ops import kernel_launches
 from dream_tpu_torch.parallel import mesh as mesh_ops
@@ -42,6 +51,104 @@ def to_float64(net) -> None:
                 setattr(module, attr, torch.float64)
     net.optimizer = None
     net.enable_training()
+
+
+def record_decisions(model: torch.nn.Module, rows: int, layers: Sequence[str] = ()
+                     ) -> Tuple[Dict[str, np.ndarray], Callable]:
+    """Forward hooks on ``model`` that record, for the first ``rows`` rows
+    of its next forward, the sign of every conv's output (packed bits;
+    gathered whole on a mesh, since the hooks go on after the split hooks)
+    and, for each VGG down block the hourglass pools (``down1``-``down4``),
+    the window position its 2x2 max-pool picks; with ``layers``, only for
+    the modules whose names start with one of them.  Returns ``(records,
+    remove)``; call ``remove()`` after that forward."""
+    records: Dict[str, np.ndarray] = {}
+
+    def keep(name, pooled):
+        def hook(module, args, output):
+            if name in records:
+                return
+            out = output[:rows].detach()
+            if pooled:
+                _, index = F.max_pool2d(out, 2, 2, return_indices=True)
+                w = out.shape[-1]
+                row, col = index // w, index % w
+                records[name] = ((row % 2) * 2 + col % 2).to(torch.uint8).cpu().numpy()
+            else:
+                records[name] = np.packbits((out > 0).cpu().numpy())
+        return hook
+
+    handles = []
+    for name, module in model.named_modules():
+        if layers and not name.startswith(tuple(layers)):
+            continue
+        if isinstance(module, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
+            handles.append(module.register_forward_hook(keep(name, False)))
+        elif name.split(".")[-1] in ("down1", "down2", "down3", "down4"):
+            handles.append(module.register_forward_hook(keep(name + ".pool", True)))
+
+    def remove():
+        for h in handles:
+            h.remove()
+
+    return records, remove
+
+
+def decision_flips(a: Dict[str, np.ndarray], b: Dict[str, np.ndarray]) -> Dict[str, List[int]]:
+    """Per recorded layer, ``[decisions that differ, decisions]`` between two
+    runs' :func:`record_decisions`."""
+    out = {}
+    for name, x in a.items():
+        y = b[name]
+        if name.endswith(".pool"):
+            out[name] = [int(np.sum(x != y)), int(x.size)]
+        else:
+            out[name] = [int(np.unpackbits(x ^ y).sum()), int(x.size * 8)]
+    return out
+
+
+def gradient_gaps(grads: Dict[str, torch.Tensor], reference: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    """Per parameter leaf, the relative L2 distance of ``grads`` from
+    ``reference`` (NaN where the reference leaf is zero)."""
+    out = {}
+    for name, g in reference.items():
+        norm = float(g.double().norm())
+        out[name] = float((grads[name].double() - g.double()).norm()) / norm if norm > 0 else math.nan
+    return out
+
+
+def whole_gap(grads: Dict[str, torch.Tensor], reference: Dict[str, torch.Tensor]) -> float:
+    """Relative L2 distance of all the leaves laid end to end."""
+    num = sum(float((grads[k].double() - g.double()).square().sum()) for k, g in reference.items())
+    return math.sqrt(num / sum(float(g.double().square().sum()) for g in reference.values()))
+
+
+def split_gradient_reading(unsharded32: Dict[str, Any], unsharded64: Dict[str, Any],
+                           split32: Dict[str, Any], split64: Dict[str, Any]) -> Dict[str, Any]:
+    """The per-layer reading of four :func:`train_steps` records of one
+    step (unsharded and split, float32 and float64, each with
+    ``decisions``): the whole gradients' distances; each leaf's float32
+    distance from the unsharded float64 step, unsharded and split, from the
+    head back to the input (the order the backward runs), and the leaf
+    where the split one's ratio to the unsharded one's peaks (``entry``);
+    the decisions that part between runs, per recorded layer."""
+    ref = unsharded64["grads"]
+    unsharded, split = gradient_gaps(unsharded32["grads"], ref), gradient_gaps(split32["grads"], ref)
+    leaves = [[k, unsharded[k], split[k]] for k in list(ref)[::-1]]
+    pairs = {"split32_vs_unsharded32": (split32, unsharded32), "unsharded32_vs_float64": (unsharded32, unsharded64),
+             "split32_vs_float64": (split32, unsharded64), "split64_vs_float64": (split64, unsharded64)}
+    flips = {pair: decision_flips(a["decisions"], b["decisions"]) for pair, (a, b) in pairs.items()}
+    return {
+        "whole": {"unsharded_float32": whole_gap(unsharded32["grads"], ref),
+                  "split_float32": whole_gap(split32["grads"], ref),
+                  "split_vs_unsharded_float32": whole_gap(split32["grads"], unsharded32["grads"]),
+                  "split_float64": whole_gap(split64["grads"], ref)},
+        "split_leaves": split32["split"],
+        "leaves": leaves,
+        "entry": max(leaves, key=lambda leaf: leaf[2] / leaf[1] if leaf[1] > 0 else 0.0),
+        "decisions": {layer: {pair: flips[pair][layer] for pair in flips}
+                      for layer in unsharded64["decisions"]},
+    }
 
 
 def train_network_for_run(run: Dict[str, Any], device: Any, mesh=None):
@@ -77,7 +184,9 @@ def train_steps(net, run: Dict[str, Any]) -> Dict[str, Any]:
     rows, ``local=True``).  Returns the losses and step times, the first
     step's gradients and BatchNorm running statistics, the state after the
     last step, whole, and for unaugmented frames the evaluation loss of the
-    batch before the first step."""
+    batch before the first step; with ``run["record_decisions"]`` (a row
+    count; ``run["record_layers"]`` names the layers, default all), the
+    first step's :func:`record_decisions` as ``decisions``."""
     batch = {k: torch.as_tensor(v) for k, v in run["batch"].items()}
     local = bool(run.get("local")) and net._mesh is not None
     if local:
@@ -89,6 +198,8 @@ def train_steps(net, run: Dict[str, Any]) -> Dict[str, Any]:
     generator = torch.Generator(device=net.device).manual_seed(run.get("aug_seed", 0))
     start = kernel_launches()
     losses, step_ms, grads = [], [], None
+    decisions, stop_recording = (record_decisions(net.model, run["record_decisions"], run.get("record_layers", ()))
+                                 if run.get("record_decisions") else (None, None))
     for step in range(run["steps"]):
         _sync(net.device)
         t0 = time.perf_counter()
@@ -96,6 +207,8 @@ def train_steps(net, run: Dict[str, Any]) -> Dict[str, Any]:
             loss = net.train_raw(generator, batch["raw"], batch["kp"], local)
         else:
             loss = net.train([batch["x"]], batch["target"], local)
+        if step == 0 and stop_recording is not None:
+            stop_recording()
         losses.append(float(loss))
         _sync(net.device)
         step_ms.append((time.perf_counter() - t0) * 1e3)
@@ -110,6 +223,8 @@ def train_steps(net, run: Dict[str, Any]) -> Dict[str, Any]:
            "running_after_first_step": running, "launches": launches}
     if eval_loss is not None:
         out["eval_loss"] = eval_loss
+    if decisions is not None:
+        out["decisions"] = decisions
     return out
 
 

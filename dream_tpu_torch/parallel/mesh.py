@@ -421,8 +421,9 @@ def reduce_gradients(params: Sequence[torch.Tensor], mesh: Mesh) -> None:
 
 
 def sum_over_model_group(value: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """``value`` summed over the model group (a new tensor)."""
-    total = value.detach().to(torch.float32).clone()
+    """``value`` summed over the model group (a new tensor, float32 or
+    wider: a float64 model's clipping norm stays float64)."""
+    total = value.detach().to(torch.promote_types(value.dtype, torch.float32)).clone()
     dist.all_reduce(total, group=mesh.model_group)
     return total
 

@@ -11,9 +11,23 @@ run's detections) against the NDDS dataset it was made on, as
 what ``dream_tpu_torch.cli.resolve_pnp --ransac`` runs).  The two draw
 their hypotheses differently, so they are compared as distributions: PnP
 successes and ADD AUC (0.1 m) per seed, and the frames whose ADD exceeds
-5 cm.  The plain solve of each package is printed beside them.  Prints one
-JSON object.  Imports JAX and dream_tpu: a CPU harness, not part of the
-port.
+5 cm.  The plain solve of each package is printed beside them.
+
+A third column, ``port_reference_theta``, runs the port's RANSAC under the
+same generator with ``dream_tpu``'s rotation angle ``theta = |r| + eps`` in
+place of the port's ``sqrt(|r|^2 + eps^2)`` (patched into the module for
+the run, the package untouched): the one line where the two solvers part
+on purpose (ROADMAP.md section 3).  The frames whose ADD the patch moves by
+more than 1 mm are listed per seed.  Two more columns take the draw out:
+the port given ``dream_tpu``'s own hypothesis subsets (``jax.random.choice``
+under each frame's key, as ``solve_pnp_ransac`` draws them), with its own
+theta (``port_jax_subsets``) and with ``dream_tpu``'s
+(``port_reference_theta_jax_subsets``); for each, the frames whose
+validity or ADD (to 1 mm) differs from ``dream_tpu``'s are listed per
+seed.  Two columns measure ``dream_tpu``'s own rounding spread: its RANSAC
+on the same keys with every detection moved by one float32 ulp up
+(``dream_tpu_ulp_up``) or down (``dream_tpu_ulp_down``).  Prints one JSON
+object.  Imports JAX and dream_tpu: a CPU harness, not part of the port.
 
 Usage:
   python3 scripts/compare_ransac_holdout.py -k <run>/keypoints.csv -d <holdout dir> \\
@@ -30,6 +44,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "scripts"))
+sys.path.insert(0, os.path.join(ROOT, "tests"))
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -47,6 +62,7 @@ from dream_tpu_torch.utils.ndds import (  # noqa: E402
     load_image_resolution,
     load_keypoints,
 )
+from test_torch_pnp_modes import reference_theta  # noqa: E402
 
 
 def summary(valid, adds, n_inframe):
@@ -95,20 +111,52 @@ def main():
     out["plain"]["port"] = summary(*port_adds(tgv.solve_pnp(torch.from_numpy(positions),
                                                             torch.from_numpy(detected), Kt)), n_inframe)
     ransac_jax = jax.jit(jax.vmap(lambda X, uv, key: jgv.solve_pnp_ransac(X, uv, Kj, key=key)[0]))
-    runs = {"dream_tpu": [], "port": []}
-    for seed in range(args.seeds):
-        keys = jax.random.split(jax.random.PRNGKey(seed), len(names))
-        runs["dream_tpu"].append(summary(*jax_adds(ransac_jax(jnp.asarray(positions), jnp.asarray(detected),
-                                                              keys)), n_inframe))
+    # solve_pnp_ransac's draws (dream_tpu/ops/geometric_vision.py:557-566).
+    draw = jax.jit(jax.vmap(lambda lg, key: jax.vmap(
+        lambda k: jax.random.choice(k, lg.shape[0], shape=(4,), replace=False,
+                                    p=jax.nn.softmax(lg)))(jax.random.split(key, 64))))
+    logits = jnp.where(jnp.asarray(mask), 0.0, -1e9)
+
+    columns = ("dream_tpu", "port", "port_reference_theta", "port_jax_subsets",
+               "port_reference_theta_jax_subsets", "dream_tpu_ulp_up", "dream_tpu_ulp_down")
+    moved_ulp = {direction: np.where(mask[..., None], np.nextafter(detected, np.float32(direction)), detected)
+                 for direction in (np.inf, -np.inf)}
+    runs = {c: [] for c in columns}
+    moved, apart = [], {c: [] for c in columns[3:5]}
+
+    def port_ransac(seed, subsets=None):
         generator = torch.Generator().manual_seed(seed)
         result, _ = tgv.solve_pnp_ransac(torch.from_numpy(positions), torch.from_numpy(detected), Kt,
-                                         generator=generator)
-        runs["port"].append(summary(*port_adds(result), n_inframe))
+                                         generator=generator, subsets=subsets)
+        return port_adds(result)
+
+    def frames_apart(a, b):
+        (va, aa), (vb, ab) = a, b
+        return [names[i] for i in np.nonzero((va != vb) | (va & ~(np.abs(aa - ab) <= 1e-3)))[0]]
+
+    for seed in range(args.seeds):
+        keys = jax.random.split(jax.random.PRNGKey(seed), len(names))
+        ref, up, down = (jax_adds(ransac_jax(jnp.asarray(positions), jnp.asarray(uv), keys))
+                         for uv in (detected, moved_ulp[np.inf], moved_ulp[-np.inf]))
+        subsets = torch.from_numpy(np.array(draw(logits, keys)))
+        port, port_subsets = port_ransac(seed), port_ransac(seed, subsets)
+        with reference_theta():
+            patched, patched_subsets = port_ransac(seed), port_ransac(seed, subsets)
+        for column, result in zip(columns, (ref, port, patched, port_subsets, patched_subsets, up, down)):
+            runs[column].append(summary(*result, n_inframe))
+        for column, result in zip(columns[3:5], (port_subsets, patched_subsets)):
+            apart[column].append(frames_apart(result, ref))
+        moved.append({names[i]: [float(port[1][i]), float(patched[1][i])]
+                      for i in np.nonzero(port[0] & ~(np.abs(port[1] - patched[1]) <= 1e-3))[0]})
     for package, per_seed in runs.items():
         aucs = [r["add_auc"] for r in per_seed]
         out["ransac"][package] = {"per_seed": per_seed, "add_auc_mean": float(np.mean(aucs)),
                                   "add_auc_std": float(np.std(aucs)),
+                                  "add_auc_sem": float(np.std(aucs, ddof=1) / np.sqrt(len(aucs)))
+                                  if len(aucs) > 1 else None,
                                   "pnp_success": [r["pnp_success"][0] for r in per_seed]}
+    out["ransac"]["frames_moved_by_theta"] = moved
+    out["ransac"]["frames_apart_from_dream_tpu"] = apart
     print(json.dumps(out))
 
 

@@ -18,10 +18,19 @@ port's batched solver:
   docstring says why only there); marked ``slow``, since compiling
   dream_tpu's RANSAC alone takes ~10 s on a CPU;
 - the unweighted call unchanged: bit-equal to the call with unit weights
-  (it was bit-equal to the previous solver's output when weights came in).
+  (it was bit-equal to the previous solver's output when weights came in);
+- the frames the tests above leave out (:func:`_hard`: five-point frames,
+  and frames with two gross outliers), where the two packages' poses part:
+  the port's final weighted reprojection cost is held to at most (1 +
+  1e-3) times the lower of two ``dream_tpu`` runs, jitted over the batch
+  and jitted one frame at a time (op-by-op eager ``dream_tpu`` takes ~33 s
+  to warm up and ~5 s a frame with rejection on a CPU); each frame where
+  it is higher is named, with its cause checked (:data:`HARD_FRAMES_APART`).
 """
 
+import contextlib
 import functools
+import itertools
 
 import jax
 import jax.numpy as jnp
@@ -44,6 +53,25 @@ def _two_torch_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(threads)
+
+
+@contextlib.contextmanager
+def reference_theta():
+    """The port's Rodrigues formula with ``dream_tpu``'s angle ``|r| + eps``
+    (``dream_tpu/ops/geometric_vision.py:49``), for the block."""
+    port_rotation = tgv.rotation_matrix_from_axis_angle
+
+    def rotation(rvec):
+        theta = tgv._norm(rvec) + tgv._EPS
+        K = tgv._skew(rvec / theta[..., None])
+        return (tgv._eye(rvec) + torch.sin(theta)[..., None, None] * K
+                + (1.0 - torch.cos(theta))[..., None, None] * (K @ K))
+
+    tgv.rotation_matrix_from_axis_angle = rotation
+    try:
+        yield
+    finally:
+        tgv.rotation_matrix_from_axis_angle = port_rotation
 
 
 def _corrupted(seed, n=12, outliers=True):
@@ -203,3 +231,98 @@ def test_unweighted_call_is_unchanged():
     unit = tgv.solve_pnp(*args, weights=torch.ones(X.shape[:2]))
     for a, b in zip(plain, unit):
         assert torch.equal(a, b)
+
+
+def _hard(seed, n=8):
+    """Frames with two points missing (even frames: five left, of which
+    frames 2 and 6 hold one gross outlier) or with two gross outliers among
+    all seven (odd frames), and score-like weights in [0.3, 1]."""
+    X, uv = _frames(seed, n=n)
+    rng = np.random.RandomState(200 + seed)
+    for i in range(n):
+        if i % 2 == 0:
+            missing = rng.choice(7, 2, replace=False)
+            good = [j for j in range(7) if j not in missing]
+            if i in (2, 6):
+                uv[i, rng.choice(good)] += rng.choice([-1, 1], 2) * rng.uniform(40, 90, 2)
+            uv[i, missing] = -999.999
+        else:
+            for j in rng.choice(7, 2, replace=False):
+                uv[i, j] += rng.choice([-1, 1], 2) * rng.uniform(40, 90, 2)
+    return X, uv.astype(np.float32), rng.uniform(0.3, 1.0, (n, 7)).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_solve_one():
+    """dream_tpu's solve jitted for one frame: another compiled program than
+    :func:`_jax_solve`'s batch, and so other float32 rounding."""
+    return jax.jit(lambda X, uv, w, threshold: jgv.solve_pnp(X, uv, jnp.asarray(K), weights=w,
+                                                             reject_outliers_px=threshold))
+
+
+def _final_cost(R, t, reproj_error, X, uv, w):
+    """The weighted reprojection cost (sum of ``(w e)^2``, e in px) of a
+    frame's pose over the points its solve kept: the valid points less those
+    the rejection dropped, found as the subset (up to three dropped, four or
+    more kept) whose mean pixel error is the solve's reported one."""
+    cam = X.astype(np.float64) @ np.asarray(R, np.float64).T + np.asarray(t, np.float64)
+    p = cam @ K.T.astype(np.float64)
+    e = np.linalg.norm(p[:, :2] / p[:, 2:] - uv, axis=1)
+    valid = [j for j in range(7) if uv[j, 0] > -999]
+    kept = min((s for d in range(4) for s in itertools.combinations(valid, len(valid) - d) if len(s) >= 4),
+               key=lambda s: abs(e[list(s)].mean() - reproj_error))
+    kept = list(kept)
+    assert abs(e[kept].mean() - reproj_error) <= 1e-4 * reproj_error
+    return float(np.sum((w[kept] * e[kept]) ** 2))
+
+
+_FACTOR = 1.0 + 1e-3
+# (mode, seed, frame) where the port's final cost exceeds _FACTOR times the
+# lower of dream_tpu's two runs, and why:
+# - "front starts": the port's departure (moving front starts) lets its
+#   leave-one-out solves reach lower least-squares minima, and the trips
+#   then drop another point; with dream_tpu's angle patched in, the port
+#   meets the bound;
+# - "rounding": the frame is ill-posed, and dream_tpu's own runs with the
+#   detections moved by one float32 ulp spread beyond the port's cost.
+HARD_FRAMES_APART = {("reject", 0, 5): "front starts", ("weighted+reject", 2, 7): "rounding"}
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_hard_frames_hold_the_final_cost(seed):
+    X, uv, weights = _hard(seed)
+    apart = set()
+    for mode in ("weighted", "reject", "weighted+reject"):
+        w = weights if "weighted" in mode else np.ones_like(weights)
+        reject = 10.0 if "reject" in mode else None
+        threshold = np.float32(np.inf if reject is None else reject)
+        args = (torch.from_numpy(X), torch.from_numpy(uv), torch.from_numpy(K))
+        ours = tgv.solve_pnp(*args, weights=torch.from_numpy(w), reject_outliers_px=reject)
+        batch = _jax_solve()(X, uv, w, threshold)
+        # Weighted alone, the frames that keep a gross outlier are ill-posed.
+        for i in ([0, 4] if reject is None else range(8)):
+            one = _jax_solve_one()(X[i], uv[i], w[i], threshold)
+            ref = [_final_cost(r.rotation, r.translation, float(r.reproj_error), X[i], uv[i], w[i])
+                   for r in (jax.tree_util.tree_map(lambda a: a[i], batch), one)]
+            cost = _final_cost(ours.rotation[i].numpy(), ours.translation[i].numpy(),
+                               float(ours.reproj_error[i]), X[i], uv[i], w[i])
+            bound = _FACTOR * (max(ref) if max(ref) > _FACTOR * min(ref) else min(ref))
+            key = (mode, seed, i)
+            if cost <= bound:
+                continue
+            apart.add(key)
+            cause = HARD_FRAMES_APART.get(key)
+            if cause == "front starts":
+                with reference_theta():
+                    patched = tgv.solve_pnp(*args, weights=torch.from_numpy(w), reject_outliers_px=reject)
+                assert _final_cost(patched.rotation[i].numpy(), patched.translation[i].numpy(),
+                                   float(patched.reproj_error[i]), X[i], uv[i], w[i]) <= bound, key
+            elif cause == "rounding":
+                spread = []
+                for direction in (np.inf, -np.inf):
+                    moved = np.where(uv > -999, np.nextafter(uv, np.float32(direction)), uv)
+                    r = jax.tree_util.tree_map(lambda a: a[i], _jax_solve()(X, moved, w, threshold))
+                    spread.append(_final_cost(r.rotation, r.translation, float(r.reproj_error), X[i], uv[i],
+                                              w[i]))
+                assert cost <= _FACTOR * max(spread), (key, cost, ref, spread)
+    assert apart == {k for k in HARD_FRAMES_APART if k[1] == seed}
