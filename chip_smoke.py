@@ -123,12 +123,14 @@ since the script started, `elapsed_s`):
    --pnp-soft-detections --pnp-reject-outliers-px 5, each keeping PnP
    successes at or above the plain run's and ADD AUC in [0, 1];
 19. the training CLI on the 128 frames with the r5 recipe's flags (batch
-   32, bf16, clipping, --cache-device, EMA): vgg-Q for 2 epochs, then -r to
-   3 (the checkpoint layout, one warp launch a step, finite losses, the
-   optimizer's count equal to the steps taken, the log's epochs and
-   resume, best_network through the evaluation CLI); one epoch of vgg-F
-   grafted from the r5 vgg-Q checkpoint (--init-encoder, --loss-pos-weight
-   800); one QAT epoch from the r4 checkpoint;
+   32, bf16, clipping, --cache-device, EMA), which scan each epoch (the
+   CLI prints so; one CUDA graph of the step, replayed): vgg-Q for 2
+   epochs, then -r to 3 (the checkpoint layout, one warp launch a step
+   counted through the replays, finite losses, the optimizer's count equal
+   to the steps taken, the log's epochs and resume, best_network through
+   the evaluation CLI, the peak device memory the CLI prints); one epoch of
+   vgg-F grafted from the r5 vgg-Q checkpoint (--init-encoder,
+   --loss-pos-weight 800); one QAT epoch from the r4 checkpoint;
 20. timings: the evaluation CLI's frames/s against evaluate_frames in
    memory in the same dtype, the CLI's stages (decode, preprocess, model,
    peak decode, PnP), each PnP mode over the 64 frames, the training
@@ -302,13 +304,31 @@ since the script started, `elapsed_s`):
    dryrun_multichip(2, "cuda", "gloo").  The spawned ranks report their
    kernel launches back.
 
+33. scanned epochs (DreamNetwork.enable_scanned_training + train_epoch_raw:
+   the fused step captured once as a CUDA graph and replayed for each step)
+   on phase 6's 32 frames held on the card, batch 32, three steps an epoch
+   (each a permutation of the frames), augmentation on: vgg-Q in bf16 from the r5
+   sidecar's initial parameters on the r5 recipe's optimizer (Adam 2e-4,
+   clip 1.0) with an EMA of 0.999, ResNet-H in bf16 from initial parameters
+   (its sidecar's Adam, clip and cosine schedule; BatchNorm's running
+   statistics move inside the graph) and the QAT checkpoint (its sidecar's
+   optimizer); for each, two scanned epochs and two eager epochs of the same
+   step (train_epoch_raw_plain) from one start and one seed, cuDNN
+   deterministic: losses, parameters, running statistics, EMA, Adam's
+   moments and counts bit-equal, the warp kernel once a step counted
+   through the replays; then for vgg-Q and ResNet-H, under cuDNN's
+   defaults, with CUDA events after a warm-up epoch, ms a step both ways
+   (the median of 3 epochs), one epoch of each under torch.profiler (the
+   host's launch and copy calls, the device's busy share) and the peak
+   device memory of each.
+
 Then a line listing the kernels with their measurements (each row's ms and
 library_ms time the same work; the score and warp rows' ms is device time
 from a CUDA graph, and the warp's library_ms too; the score row adds its
 device time at phase 15's shapes; redesigned_in names the design the kernel
 now has; launches are counted on the CLI runs of phases 18-19, the
 counted serving runs of phases 21-22, the runs of phases 30, 31 and 32
-(with its spawned ranks) and,
+(with its spawned ranks), the scanned runs of phase 33 and,
 for the score kernel, the int8 runs of phases 26-27), and as the last line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
 before that line.  Without CUDA the script exits non-zero at once.
@@ -354,12 +374,19 @@ PANDA = os.path.join(ROOT, "manip_configs/panda.yaml")
 VGGQ_ARCH = os.path.join(ROOT, "arch_configs/dream_vgg_q.yaml")
 VGGF_ARCH = os.path.join(ROOT, "arch_configs/dream_vgg_f.yaml")
 REFERENCE_DIR = os.path.join(ROOT, "trained_models/results_r5/eval_vggq_r5")
-# The r5 training recipe's flags (scripts/r5_artifact_queue.sh:52-54), and
+# The r5 training recipe's flags (scripts/r5_artifact_queue.sh:59-61), and
 # the sizes of the sets the workflow phases write.
 R5_TRAIN_FLAGS = ["-b", "32", "-lr", "2e-4", "--grad-clip-norm", "1.0", "--cache-device",
                   "--compute-dtype", "bfloat16", "-s", "42", "-w", "8"]
 HOLDOUT_FRAMES = 64
 TRAIN_SET_FRAMES = 128
+# What the training CLI prints when it scans its epochs on the card.
+SCANNED_LINE = "Scanned-epoch training: the step captured once as a CUDA graph"
+# Phase 33: steps of a scanned epoch at batch 32 (each a permutation of
+# phase 6's 32 frames), and the r5 recipe's optimizer
+# (scripts/r5_artifact_queue.sh:59-61).
+SCAN_STEPS = 3
+R5_OPTIMIZER = {"type": "adam", "learning_rate": 2e-4, "grad_clip_norm": 1.0}
 INT8_REFERENCES = {
     "float_r4": "trained_models/results_r4/eval_vggq_plain/analysis_results.txt",
     "ptq_r4": "trained_models/results_r5/eval_vggq_ptq/analysis_results.txt",
@@ -629,10 +656,14 @@ def grid_sample_warp(images_nchw, inverse):
     return run
 
 
-def profile_busy(fn, top=5):
+def profile_busy(fn, top=5, kernels=()):
     """Wall ms of ``fn()`` unprofiled and under torch.profiler, the device's
     busy ms in the profiled run (the sum of device-side events, which counts
-    overlapping kernels twice), launches and the ``top`` longest kernels."""
+    overlapping kernels twice), launches and the ``top`` longest kernels,
+    the host's launch and copy calls into CUDA (``cuda*`` and ``cu*``;
+    a CUDA graph's replay is one ``cudaGraphLaunch``) and, for each name in
+    ``kernels``, the device-side events whose name holds it: the device's
+    own count of that kernel's runs, a CUDA graph's replays included."""
     from torch.autograd import DeviceType
 
     def timed():
@@ -646,16 +677,21 @@ def profile_busy(fn, top=5):
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         wall_ms_profiled = timed()
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    averages = prof.key_averages()
+    events = [e for e in averages if e.device_type == DeviceType.CUDA]
 
     def device_us(e):
         return float(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)))
 
     busy_ms = sum(device_us(e) for e in events) / 1e3
     longest = sorted(events, key=device_us, reverse=True)[:top]
+    host_calls = {e.key: e.count for e in averages if e.device_type == DeviceType.CPU
+                  and e.key.startswith("cu") and any(w in e.key for w in ("Launch", "Memcpy", "Memset"))}
     return {"wall_ms": wall_ms, "wall_ms_profiled": wall_ms_profiled, "device_busy_ms": busy_ms,
             "device_idle_share_profiled": 1 - busy_ms / wall_ms_profiled,
             "device_launches": sum(e.count for e in events),
+            "host_launch_calls": sum(host_calls.values()), "host_calls": host_calls,
+            "kernel_runs": {k: sum(e.count for e in events if k in e.key) for k in kernels},
             "top_kernels": [{"name": e.key[:80], "count": e.count, "ms": device_us(e) / 1e3}
                             for e in longest]}
 
@@ -741,20 +777,21 @@ def im2col_int8(x_q):
 
 
 def snapshot(network):
+    """The parameters, the optimizer's state as its optax tree (moments,
+    count, so the schedule's position) and the EMA, as host or cloned
+    copies."""
     return {
         "model": copy.deepcopy(network.model.state_dict()),
-        "optimizer": copy.deepcopy(network.optimizer.state_dict()),
-        "scheduler": network.scheduler.state_dict(),
+        "optimizer": network.optimizer_state(),
         "ema": {k: v.clone() for k, v in network.ema_params.items()},
     }
 
 
 def restore(network, snap):
-    """Back to ``snap``; the optimizer adopts the tensors of a state dict it
-    loads, so it gets a copy and the snapshot stays as it was."""
+    """Back to ``snap``: the parameters and the EMA copied in place, the
+    optimizer's state loaded from the tree (fresh tensors each time)."""
     network.model.load_state_dict(snap["model"])
-    network.optimizer.load_state_dict(copy.deepcopy(snap["optimizer"]))
-    network.scheduler.load_state_dict(snap["scheduler"])
+    network.load_optimizer_state(snap["optimizer"])
     for k, v in snap["ema"].items():
         network.ema_params[k].copy_(v)
 
@@ -990,14 +1027,18 @@ def workflow_phases(kernels_of_port, reset_counts, smi, holdout):
     argv = (["-i", train_set, "-m", PANDA, "-ar", VGGQ_ARCH, "-o", vggq_out, "--loss-pos-weight", "50",
              "--ema-decay", "0.999"] + R5_TRAIN_FLAGS)
     steps_per_epoch = int(round(TRAIN_SET_FRAMES * 0.8)) // TRAIN_BATCH
-    _, _, first_s, first_counts = train(argv + ["-e", "2"])
+    _, first_text, first_s, first_counts = train(argv + ["-e", "2"])
     files = set(os.listdir(vggq_out))
     layout = {"epoch_2.yaml", "epoch_2.msgpack", "epoch_2.opt.msgpack", "epoch_2.ema.msgpack",
               "best_network.yaml", "best_network.msgpack", "best_network_ema.yaml",
               "best_network_ema.msgpack", "training_log.pkl"}
     if not layout <= files or "epoch_1.msgpack" in files:
         raise AssertionError(f"checkpoint layout after two epochs: {sorted(files)}")
-    trainer, _, resume_s, resume_counts = train(argv + ["-e", "3", "-r"])
+    trainer, resume_text, resume_s, resume_counts = train(argv + ["-e", "3", "-r"])
+    scanned = [SCANNED_LINE in text for text in (first_text, resume_text)]
+    if not all(scanned):
+        raise AssertionError(f"--cache-device on one rank did not take the scanned path: {scanned}")
+    peaks = [float(v) for v in re.findall(r"Peak device memory: ([\d.]+) GiB", first_text + resume_text)]
     out["launches"]["warp_kernel"] = first_counts["warp_kernel"]
     if (first_counts["warp_kernel"] != 2 * steps_per_epoch
             or resume_counts["warp_kernel"] != steps_per_epoch):
@@ -1031,6 +1072,7 @@ def workflow_phases(kernels_of_port, reset_counts, smi, holdout):
     progress("training_cli", arch="vgg-Q", flags=R5_TRAIN_FLAGS, seconds=[first_s, resume_s],
              launches=[first_counts, resume_counts], epochs=log["epochs"],
              epochs_resumed=log["epochs_resumed"], optimizer_count=count, losses=log["losses"],
+             scanned_epochs=SCANNED_LINE, peak_device_gib_by_epoch=peaks,
              validation_losses=log["validation_losses"], layout=sorted(files),
              best_network_evaluated={"inframe_found": kp["num_found_gt_inframe"]})
     del trainer
@@ -1040,16 +1082,17 @@ def workflow_phases(kernels_of_port, reset_counts, smi, holdout):
         ["-i", train_set, "-m", PANDA, "-ar", VGGF_ARCH, "-o", vggf_out, "-e", "1",
          "--loss-pos-weight", "800", "--init-encoder", CHECKPOINT] + R5_TRAIN_FLAGS)
     grafted = re.search(r"\((\d+) leaves grafted, (\d+) shape-skipped\)", text)
-    if grafted is None or int(grafted.group(1)) == 0 or vggf_counts["warp_kernel"] != steps_per_epoch:
+    if (grafted is None or int(grafted.group(1)) == 0 or vggf_counts["warp_kernel"] != steps_per_epoch
+            or SCANNED_LINE not in text):
         raise AssertionError(f"vgg-F: graft {grafted and grafted.group(0)}, launches {vggf_counts}")
     qat_out = os.path.join(tmp, "train_qat")
-    qat, _, qat_s, qat_counts = train(
+    qat, qat_text, qat_s, qat_counts = train(
         ["-i", train_set, "-m", PANDA, "-ar", VGGQ_ARCH, "-o", qat_out, "-e", "1", "--quant-mode", "qat",
          "--init-params", R4_CHECKPOINT, "--loss-pos-weight", "50"] + R5_TRAIN_FLAGS + ["-lr", "5e-5"])
     with open(os.path.join(qat_out, "training_log.pkl"), "rb") as f:
         qat_losses = pickle.load(f)["batch_training_losses"][0]
     if qat.quant_mode != "qat" or qat_counts["warp_kernel"] != steps_per_epoch or not np.all(
-            np.isfinite(qat_losses)):
+            np.isfinite(qat_losses)) or SCANNED_LINE not in qat_text:
         raise AssertionError(f"QAT: mode {qat.quant_mode}, launches {qat_counts}, losses {qat_losses}")
     progress("training_cli_graft_qat", vggf={"n_grafted": int(grafted.group(1)),
                                               "n_skipped": int(grafted.group(2)), "seconds": vggf_s,
@@ -2786,6 +2829,166 @@ def multigpu_and_plots_phase(kernels_of_port, reset_counts, smi, work, frames):
     return {k: steps[k] + rest[k] for k in steps}
 
 
+def scanned_epochs_phase(kernels_of_port, reset_counts, smi, frames):
+    """Phase 33: scanned epochs (one CUDA graph of the fused step, replayed
+    for each step) against eager epochs of the same step, for vgg-Q in bf16
+    on the r5 recipe's optimizer, ResNet-H in bf16 (its sidecar's optimizer
+    and cosine schedule; BatchNorm's running statistics move in the graph)
+    and the QAT checkpoint (its sidecar's optimizer), each from one start
+    and one seed on phase 6's rendered frames held on the card; then, for
+    vgg-Q and ResNet-H, ms a step, the host's launch calls, the device's
+    busy share and the peak memory, both ways.  Returns the scanned runs'
+    kernel launches."""
+    from dream_tpu_torch.network import DreamNetwork, create_network_from_config_file, dtype_name
+
+    images = torch.from_numpy(frames["images"]).cuda()
+    kps = torch.from_numpy(frames["projections"]).float().cuda()
+    rng = np.random.RandomState(33)
+    matrices = [torch.from_numpy(np.stack([rng.permutation(len(images)) for _ in range(SCAN_STEPS)]))
+                .cuda() for _ in range(2)]
+
+    def vggq():
+        cfg = config_in(CONFIG)
+        cfg["training"]["config"]["optimizer"] = dict(R5_OPTIMIZER)
+        return DreamNetwork(cfg, device="cuda", seed=0)
+
+    # (label, build, timed)
+    cases = [("vgg-Q bf16 r5 optimizer", vggq, True),
+             ("resnet-H bf16", lambda: load_network(RESNETS["resnet-H"][0], seed=0), True),
+             ("vgg-Q QAT bf16", lambda: create_network_from_config_file(QAT_CONFIG, QAT_CHECKPOINT,
+                                                                        device="cuda"), False)]
+
+    def held(net):
+        """Every tensor the steps move: parameters and running statistics,
+        the EMA, Adam's moments and per-parameter counts."""
+        out = {f"model.{k}": v for k, v in net.model.state_dict().items()}
+        out.update({f"ema.{k}": v for k, v in net.ema_params.items()})
+        for name, p in net.model.named_parameters():
+            out.update({f"adam.{name}.{k}": v for k, v in net.optimizer.state[p].items()})
+        return out
+
+    def epoch_ms(run, generator, matrix):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        run(generator, images, kps, matrix)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / SCAN_STEPS
+
+    launched = {k: 0 for k in kernels_of_port}
+    report = {}
+    for seed, (label, build, timed) in enumerate(cases, start=33):
+        # Bit-equality: two scanned and two eager epochs from one start.
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        t0 = time.perf_counter()
+        nets = {"scanned": build()}
+        nets["eager"] = copy.deepcopy(nets["scanned"])
+        build_s = time.perf_counter() - t0
+        runs = {}
+        for way, net in nets.items():
+            net.enable_ema(0.999)
+            net.enable_scanned_training(processor_for(net, augment=True))
+            run = net.train_epoch_raw if way == "scanned" else net.train_epoch_raw_plain
+            g = torch.Generator(device="cuda").manual_seed(seed)
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses = torch.stack([run(g, images, kps, m) for m in matrices])
+            torch.cuda.synchronize()
+            runs[way] = {"losses": losses, "seconds": time.perf_counter() - t0,
+                         "launches": {k: v.launches for k, v in kernels_of_port.items()},
+                         "steps": net.steps, "held": held(net), "generator": g}
+        scanned, eager = nets["scanned"], nets["eager"]
+        a, b = runs["scanned"], runs["eager"]
+        differ = sorted(k for k in a["held"] if not torch.equal(a["held"][k], b["held"][k]))
+        failures = []
+        if set(a["held"]) != set(b["held"]) or differ:
+            failures.append(f"{len(differ)} tensors differ, e.g. {differ[:5]}")
+        if not torch.equal(a["losses"], b["losses"]) or not torch.isfinite(a["losses"]).all():
+            failures.append(f"losses {a['losses'].tolist()} against {b['losses'].tolist()}")
+        counts = {way: sorted({int(v) for k, v in r["held"].items() if k.endswith(".step")})
+                  for way, r in runs.items()}
+        if not (a["steps"] == b["steps"] == 2 * SCAN_STEPS
+                and counts["scanned"] == counts["eager"] == [2 * SCAN_STEPS]):
+            failures.append(f"steps {a['steps']}/{b['steps']}, Adam's counts {counts}")
+        for way, r in runs.items():
+            if r["launches"]["warp_kernel"] != 2 * SCAN_STEPS:
+                failures.append(f"{way}: the warp kernel launched {r['launches']['warp_kernel']} times "
+                                f"in {2 * SCAN_STEPS} steps")
+        if failures:
+            raise AssertionError(f"phase 33, {label}: " + "; ".join(failures))
+        for k, v in a["launches"].items():
+            launched[k] += v
+        equality = {"seconds": {way: r["seconds"] for way, r in runs.items()},
+                    "launches": {way: r["launches"] for way, r in runs.items()},
+                    "losses": a["losses"].tolist(), "tensors": len(a["held"]), "steps": a["steps"]}
+
+        report[label] = {
+            "compute_dtype": dtype_name(scanned.compute_dtype),
+            "optimizer": scanned.network_config["training"]["config"]["optimizer"],
+            "bit_equal": "losses, parameters, running statistics, EMA, Adam's moments and counts",
+            "build_s": build_s, "equality_runs": equality}
+        torch.backends.cudnn.deterministic = False
+        g = a["generator"]
+        del nets, eager, runs, a, b
+        torch.cuda.empty_cache()
+        if not timed:
+            del scanned
+            torch.cuda.empty_cache()
+            continue
+        # Times under cuDNN's default choices: the scanned epochs (a warm-up
+        # epoch captures anew), then the same network's eager epochs.
+        torch.cuda.reset_peak_memory_stats()
+        scanned.train_epoch_raw(g, images, kps, matrices[0])
+        scanned_ms = [epoch_ms(scanned.train_epoch_raw, g, matrices[i % 2]) for i in range(3)]
+        counted = kernels_of_port["warp_kernel"].launches
+        scanned_profile = profile_busy(lambda: scanned.train_epoch_raw(g, images, kps, matrices[1]), top=3,
+                                       kernels=("warp_kernel",))
+        counted = kernels_of_port["warp_kernel"].launches - counted
+        scanned_peak = torch.cuda.max_memory_allocated() / 2**30
+        scanned.release_scanned_graph()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        scanned.train_epoch_raw_plain(g, images, kps, matrices[0])
+        eager_ms = [epoch_ms(scanned.train_epoch_raw_plain, g, matrices[i % 2]) for i in range(3)]
+        eager_profile = profile_busy(lambda: scanned.train_epoch_raw_plain(g, images, kps, matrices[1]),
+                                     top=3, kernels=("warp_kernel",))
+        eager_peak = torch.cuda.max_memory_allocated() / 2**30
+        # The counter's replays against the device's own count: profile_busy
+        # runs the epoch twice, the second under the profiler, whose trace
+        # sees each kernel a replay runs.
+        warp_runs = {"counted_in_two_scanned_epochs": counted,
+                     "scanned_device": scanned_profile["kernel_runs"]["warp_kernel"],
+                     "eager_device": eager_profile["kernel_runs"]["warp_kernel"]}
+        if not (counted == 2 * SCAN_STEPS and warp_runs["scanned_device"] == warp_runs["eager_device"]
+                == SCAN_STEPS):
+            raise AssertionError(f"phase 33, {label}: warp kernel runs {warp_runs}, not one a step "
+                                 f"({SCAN_STEPS} an epoch)")
+        report[label].update({
+            "ms_a_step": {"scanned": scanned_ms, "eager": eager_ms,
+                          "scanned_median": float(np.median(scanned_ms)),
+                          "eager_median": float(np.median(eager_ms))},
+            "host_launch_calls_an_epoch": {"scanned": scanned_profile["host_launch_calls"],
+                                           "eager": eager_profile["host_launch_calls"]},
+            "host_calls_an_epoch": {"scanned": scanned_profile["host_calls"],
+                                    "eager": eager_profile["host_calls"]},
+            "device_busy_share_profiled": {"scanned": 1 - scanned_profile["device_idle_share_profiled"],
+                                           "eager": 1 - eager_profile["device_idle_share_profiled"]},
+            "device_launches_an_epoch": {"scanned": scanned_profile["device_launches"],
+                                         "eager": eager_profile["device_launches"]},
+            "wall_ms_an_epoch_profiled": {"scanned": scanned_profile["wall_ms_profiled"],
+                                          "eager": eager_profile["wall_ms_profiled"]},
+            "peak_gib": {"scanned": scanned_peak, "eager": eager_peak},
+            "warp_kernel_runs": warp_runs,
+        })
+        del scanned
+        torch.cuda.empty_cache()
+    progress("scanned_epochs", card=smi, steps_an_epoch=SCAN_STEPS, batch=TRAIN_BATCH,
+             frames=len(images), cases=report)
+    return launched
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -3372,8 +3575,11 @@ def main():
     # 32. The multi-GPU layer and the plots.
     mesh_launches = multigpu_and_plots_phase(kernels_of_port, reset_counts, smi, workflow["work"], frames)
     workflow["work"]["tmp_dir"].cleanup()
+
+    # 33. Scanned epochs: the fused step as one CUDA graph, replayed.
+    scan_launches = scanned_epochs_phase(kernels_of_port, reset_counts, smi, frames)
     launched = {k: workflow["launches"][k] + serving["launches"].get(k, 0) + viz_launches[k]
-                + tools_launches[k] + mesh_launches[k] for k in workflow["launches"]}
+                + tools_launches[k] + mesh_launches[k] + scan_launches[k] for k in workflow["launches"]}
     launched["score_kernel"] += zoo_score_launches
     score_err = max(score_err, serving["max_abs_err"]["score_kernel"])
     conv_cases["serving chain links at B=1"] = serving["max_abs_err"]["conv_int8_kernel"]

@@ -30,8 +30,7 @@ def network_inference_dataset(args: argparse.Namespace):
         # Evaluate under another compute dtype than the checkpoint's; the
         # parameters are float32 either way.
         config["architecture"]["compute_dtype"] = args.compute_dtype
-    network = DreamNetwork(config, device=args.device)
-    network.load_network_params(args.input_params_path)
+    network = DreamNetwork.from_checkpoint(config, args.input_params_path, device=args.device)
     return analysis.analyze_ndds_dataset(
         args.input_params_path,
         network_config_path,

@@ -7,7 +7,11 @@ model)`` mesh of ranks.
 - The host decodes frames (:class:`~dream_tpu_torch.data.dataset.DataLoader`,
   a prefetch thread), or ``--cache-device`` decodes the set once and keeps it
   on the card; preprocessing, augmentation (the CUDA warp kernel), belief
-  maps, forward and backward run on the device in ``train_raw``.
+  maps, forward and backward run on the device in ``train_raw``.  With
+  ``--cache-device`` on one rank each epoch is scanned, as in ``dream_tpu``
+  (``scripts/train_network.py:443-447``): ``train_epoch_raw`` over the set
+  on the device, the step captured once as a CUDA graph and replayed for
+  each step; the peak device memory is printed after each epoch.
 - Checkpoints in ``-o``: ``epoch_N.{yaml,msgpack,opt.msgpack,ema.msgpack}``
   (earlier epochs deleted), ``best_network.*``, ``best_network_ema.*`` and
   ``training_log_eN.pkl``, renamed ``training_log.pkl`` at the end.  The
@@ -347,16 +351,20 @@ def _train(args, mesh):
         print(f"~~ RESUMING TRAINING FROM {most_recent_epoch_params_path} ~~\n")
 
     print(f"Network configuration: {network_config}")
-    dream_network = DreamNetwork(network_config, device=device, seed=random_seed)
     if args.resume_training:
-        dream_network.load_network_params(os.path.join(args.output_dir, most_recent_epoch_params_path))
+        dream_network = DreamNetwork.from_checkpoint(
+            network_config, os.path.join(args.output_dir, most_recent_epoch_params_path), device=device,
+            seed=random_seed)
     elif args.init_params:
-        dream_network.load_network_params(args.init_params)
+        dream_network = DreamNetwork.from_checkpoint(network_config, args.init_params, device=device,
+                                                     seed=random_seed)
         print(f"Initialized parameters from {args.init_params}")
-    elif args.init_encoder:
-        n_grafted, n_skipped = dream_network.init_encoder_from(args.init_encoder)
-        print(f"Initialized encoder from {args.init_encoder} "
-              f"({n_grafted} leaves grafted, {n_skipped} shape-skipped)")
+    else:
+        dream_network = DreamNetwork(network_config, device=device, seed=random_seed)
+        if args.init_encoder:
+            n_grafted, n_skipped = dream_network.init_encoder_from(args.init_encoder)
+            print(f"Initialized encoder from {args.init_encoder} "
+                  f"({n_grafted} leaves grafted, {n_skipped} shape-skipped)")
     dream_network.enable_training()
     if args.resume_training:
         opt_path = os.path.join(args.output_dir,
@@ -408,8 +416,18 @@ def _train(args, mesh):
 
     processor_args = (image_raw_resolution, trained_net_input_res, trained_net_output_res,
                       dream_network.image_preprocessing(), dream_network.image_normalization)
-    dream_network.enable_fused_training(
-        dream_data.make_batch_processor(*processor_args, augment=enable_augment_data))
+    process_train = dream_data.make_batch_processor(*processor_args, augment=enable_augment_data)
+    # A set held on the device, on one rank: each epoch is one scan of the
+    # fused step over it (scripts/train_network.py:443-447); the
+    # host loader and a mesh go step by step.
+    scan_epochs = args.cache_device and mesh is None
+    if scan_epochs:
+        dream_network.enable_scanned_training(process_train)
+        print("Scanned-epoch training: " + (
+            "the step captured once as a CUDA graph, replayed for each step of the epoch."
+            if device.type == "cuda" else "the step in one loop over the set on the device."))
+    else:
+        dream_network.enable_fused_training(process_train)
     process_valid = dream_data.make_batch_processor(*processor_args, augment=False)
     if args.ema_decay is not None:
         dream_network.enable_ema(args.ema_decay)
@@ -449,11 +467,10 @@ def _train(args, mesh):
                 profiler.start()
 
             train_loader.set_epoch(e)
-            if args.cache_device:
+            if scan_epochs:
                 index_matrix = train_loader.epoch_index_matrix(e)
                 losses_t = dream_network.train_epoch_raw(
-                    generator, train_loader.device_images, train_loader.device_kp_projs, index_matrix,
-                    local)
+                    generator, train_loader.device_images, train_loader.device_kp_projs, index_matrix)
                 training_batch_sample_names = [dataset.sample_names(train_loader.indices[sel])
                                                for sel in index_matrix]
             else:
@@ -538,6 +555,10 @@ def _train(args, mesh):
                 profiler.export_chrome_trace(trace)
                 print(f"Wrote device trace to {trace}")
 
+            if scan_epochs and device.type == "cuda":
+                # The graph's pool (one step's activations) beside what
+                # validation allocates eagerly.
+                print(f"Peak device memory: {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
             this_epoch_timestamp = time.time() - training_start_time
             print(f"This epoch took {this_epoch_timestamp - last_epoch_timestamp} seconds.\n")
             last_epoch_timestamp = this_epoch_timestamp

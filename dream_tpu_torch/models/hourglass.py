@@ -197,6 +197,11 @@ class DreamHourglass(nn.Module):
         """Redraw every conv with flax's defaults, in module order; ``beta``
         back to ``initial_beta``."""
         init_module_(self, generator)
+        self.reset_buffers()
+
+    def reset_buffers(self) -> None:
+        """``beta`` back to ``initial_beta`` (a fixed one is a buffer no
+        state dict holds)."""
         if self.internalize_spatial_softmax:
             with torch.no_grad():
                 self.beta.fill_(self.initial_beta)

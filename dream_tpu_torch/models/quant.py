@@ -52,7 +52,12 @@ def ste_round(x: torch.Tensor) -> torch.Tensor:
 def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     """``jnp.clip`` as ``minimum(maximum(x, lo), hi)``: at a bound the
     gradient splits in half, as jax's does for ties."""
-    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+    def bound(v: float) -> torch.Tensor:
+        # Filled on the device: no host-to-device copy, which a CUDA graph
+        # of a QAT step could not hold.
+        return torch.full((), v, dtype=x.dtype, device=x.device)
+
+    return torch.minimum(torch.maximum(x, bound(lo)), bound(hi))
 
 
 def quantize_weights(weight: torch.Tensor, out_dim: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -90,6 +95,11 @@ class _QuantMixin:
     def _init_quant(self, mode: str) -> None:
         self.mode = mode
         self.register_buffer("act_amax", torch.zeros((), dtype=torch.float32), persistent=False)
+
+    def reset_buffers(self) -> None:
+        """``act_amax`` back to 0, as built (no state dict holds it)."""
+        with torch.no_grad():
+            self.act_amax.zero_()
 
     def _quant_forward(self, x: torch.Tensor, out_dim: int) -> Optional[torch.Tensor]:
         """``None`` where the float conv runs (``float``, ``calibrate``),

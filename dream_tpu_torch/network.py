@@ -7,7 +7,9 @@ run ``image -> (belief_maps, keypoints)`` on one device, and train: the
 belief-map criteria (``:70-118``), the multistage loss (``:373-392``), the
 optimizer with its schedule and global-norm clipping (``:394-435``), the
 train steps with BatchNorm's running statistics (``:437-460``), the EMA
-(``:512-532``) and the evaluation loss; quantization-aware training of the
+(``:512-532``), the scanned epoch over a set held on the device
+(``enable_scanned_training``, ``:582-657``: one CUDA graph of the step,
+replayed for each step) and the evaluation loss; quantization-aware training of the
 vgg hourglasses (``quant_mode: qat``) and int8 inference of every
 architecture (``enable_int8_inference``, ``:796-969``: vgg-Q's chain of
 int8 conv kernels, or the quantized conv graph of any hourglass and of the
@@ -39,8 +41,10 @@ the CPU; without CUDA they raise instead of falling back.
 from __future__ import annotations
 
 import copy
+import functools
 import math
 import os
+from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -69,6 +73,7 @@ from dream_tpu_torch.models.pretrain import graft_encoder_params
 from dream_tpu_torch.ops import belief_maps as bm_ops
 from dream_tpu_torch.ops import coords as coord_ops
 from dream_tpu_torch.ops import image_proc as image_proc_ops
+from dream_tpu_torch.ops.warp import warp_batch_kernel
 from dream_tpu_torch.parallel import mesh as mesh_ops
 from dream_tpu_torch.utils import resolutions as res_utils
 from dream_tpu_torch.utils.config import load_yaml, save_yaml
@@ -117,15 +122,16 @@ def create_network_from_config_file(
     config_file_path: str, network_params_path: Optional[str] = None,
     device: Any = "cuda",
 ) -> "DreamNetwork":
-    """Parity: ``dream_tpu.network.create_network_from_config_file``."""
+    """Parity: ``dream_tpu.network.create_network_from_config_file``.  With
+    ``network_params_path`` no initial parameters are drawn: the checkpoint
+    gives them all."""
     if not os.path.exists(config_file_path):
         raise FileNotFoundError(config_file_path)
-    network = create_network_from_config_data(load_yaml(config_file_path), device=device)
+    if network_params_path and not os.path.exists(network_params_path):
+        raise FileNotFoundError(network_params_path)
     if network_params_path:
-        if not os.path.exists(network_params_path):
-            raise FileNotFoundError(network_params_path)
-        network.load_network_params(network_params_path)
-    return network
+        return DreamNetwork.from_checkpoint(load_yaml(config_file_path), network_params_path, device)
+    return DreamNetwork(load_yaml(config_file_path), device=device)
 
 
 def create_network_from_config_data(network_config_data: Dict[str, Any],
@@ -230,6 +236,41 @@ def warmup_cosine_decay(step: int, peak_value: float, warmup_steps: int, decay_s
     return peak_value * ((1 - alpha) * cosine + alpha)
 
 
+def warmup_cosine_decay_device(count: torch.Tensor, peak_value: float, warmup_steps: int,
+                               decay_steps: int, end_value: float = 0.0) -> torch.Tensor:
+    """:func:`warmup_cosine_decay` at the integer step tensor ``count``, a
+    float32 0-d tensor on its device computed as optax computes it: float32
+    throughout, ``join_schedules`` of ``linear_schedule`` (a clip of the
+    count, ``1 - count / warmup``) and ``cosine_decay_schedule`` (the count
+    capped at ``decay_steps - warmup_steps``).  No host sync, so a CUDA
+    graph holds it."""
+    f32 = torch.float32
+    if warmup_steps > 0:
+        frac = 1 - count.clamp(0, warmup_steps).to(f32) / warmup_steps
+        warm = (0.0 - peak_value) * frac + peak_value
+    else:
+        warm = torch.zeros((), dtype=f32, device=count.device)
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    span = float(decay_steps - warmup_steps)
+    decayed = torch.clamp_max((count - warmup_steps).to(f32), span)
+    cosine = 0.5 * (1 + torch.cos(math.pi * decayed / span))
+    return torch.where(count < warmup_steps, warm, peak_value * ((1 - alpha) * cosine + alpha))
+
+
+class DeviceSGD(torch.optim.SGD):
+    """Plain SGD (``p - lr * g``, optax's ``sgd``) whose learning rate is a
+    0-d tensor on the parameters' device, read there: ``torch.optim.SGD``
+    takes a tensor learning rate to the host, which a CUDA graph cannot
+    hold."""
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if params:
+                torch._foreach_sub_(params, torch._foreach_mul([p.grad for p in params], group["lr"]))
+
+
 def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float,
                          split: Optional[Sequence[bool]] = None, mesh=None) -> torch.Tensor:
     """Clip in place as ``optax.clip_by_global_norm``: with ``norm`` the
@@ -253,8 +294,25 @@ def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float,
     return norm
 
 
+@dataclass
+class _EpochGraph:
+    """A CUDA graph of one scanned step: its static index tensor and loss,
+    the warp launches one replay makes, the key it was captured for and the
+    tensors whose addresses that key holds."""
+
+    graph: torch.cuda.CUDAGraph
+    row: torch.Tensor
+    loss: torch.Tensor
+    warp_launches: int
+    key: tuple
+    inputs: tuple
+
+
 class DreamNetwork:
-    """Config-validated model + decode + coordinate maps + training."""
+    """Config-validated model + decode + coordinate maps + training.
+
+    The model starts from flax's initial values drawn from ``seed``, or from
+    a checkpoint's (:meth:`from_checkpoint`)."""
 
     def __init__(self, network_config: Dict[str, Any], device: Any = "cuda", seed: int = 0):
         self.device = resolve_device(device)
@@ -346,9 +404,15 @@ class DreamNetwork:
         self.criterion = criterion_from_config(arch["loss"])
         self._loss_terms = loss_terms_from_config(arch["loss"])
         self.optimizer: Optional[torch.optim.Optimizer] = None
-        self.scheduler: Optional[torch.optim.lr_scheduler.LambdaLR] = None
-        self._lr_factor: Optional[Callable[[int], float]] = None
+        # The learning rate's schedule, a function of the step count tensor.
+        self._schedule: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
         self.steps = 0  # optimizer steps taken, optax's ``count``
+        # ``steps`` on the device too (int32, as optax's count), which each
+        # step moves there: a CUDA graph of the step moves it.
+        self._count: Optional[torch.Tensor] = None
+        # enable_scanned_training's flag, and the CUDA graph of its step.
+        self._scanning = False
+        self._epoch_graph: Optional[_EpochGraph] = None
         self._clip_norm: Optional[float] = None
         self._batch_processor: Optional[Callable] = None
         self.ema_decay: Optional[float] = None
@@ -371,6 +435,26 @@ class DreamNetwork:
         if "net_output_resolution" in cfg and list(cfg["net_output_resolution"]) != out_res:
             raise ValueError("Network model and config file disagree for trained network output resolution.")
         cfg.setdefault("net_output_resolution", out_res)
+
+    @classmethod
+    def from_checkpoint(cls, network_config: Dict[str, Any], network_params_path: str,
+                        device: Any = "cuda", seed: int = 0) -> "DreamNetwork":
+        """The network ``network_config`` describes, holding the flax
+        checkpoint at ``network_params_path``: the model is built on the
+        meta device, where nothing is drawn (the draws are most of a build's
+        time on a CPU), given storage on ``device``, its non-persistent
+        buffers set as built, and loaded whole.  ``seed`` is the one
+        :meth:`init_variables` redraws from."""
+        device = resolve_device(device)
+        with torch.device("meta"):
+            network = cls(network_config, device="meta", seed=seed)
+        network.device = device
+        network.model = network.model.to_empty(device=device).eval()
+        for module in network.model.modules():
+            if hasattr(module, "reset_buffers"):
+                module.reset_buffers()
+        network.load_network_params(network_params_path)
+        return network
 
     # --- getters (reference dream/network.py:319-326) ---
 
@@ -412,9 +496,11 @@ class DreamNetwork:
         """The model's state (parameters and BatchNorm running statistics);
         with ``force``, first redrawn from ``seed`` (the constructor's seed if
         None) with flax's initial values.
-        The constructor has already drawn them, so without ``force`` nothing
-        changes, as ``dream_tpu``'s call is idempotent."""
+        The constructor has already drawn them (or :meth:`from_checkpoint`
+        loaded a checkpoint's), so without ``force`` nothing changes, as
+        ``dream_tpu``'s call is idempotent."""
         if force:
+            self.release_scanned_graph()
             generator = torch.Generator().manual_seed(self._seed if seed is None else seed)
             self.model.reset_parameters(generator)
         return self.model.state_dict()
@@ -423,6 +509,7 @@ class DreamNetwork:
         """Load flax msgpack weights, and a ResNet's ``batch_stats`` (float16
         storage is widened to float32, ``dream_tpu/network.py:1146-1156``)."""
         state = state_from_flax(load_flax_checkpoint(network_params_path))
+        self.release_scanned_graph()
         self.model.load_state_dict(state, strict=True)
 
     def init_encoder_from(self, encoder_params_path: str) -> Tuple[int, int]:
@@ -438,6 +525,7 @@ class DreamNetwork:
         if n_grafted == 0:
             raise ValueError(f"No encoder weights from {encoder_params_path} matched this model's "
                              "parameters (wrong architecture?)")
+        self.release_scanned_graph()
         self.model.load_state_dict({**state, **params_from_flax({"params": merged})}, strict=True)
         return n_grafted, n_skipped
 
@@ -472,7 +560,15 @@ class DreamNetwork:
     def enable_training(self) -> None:
         """Build the optimizer from ``training.config.optimizer``: Adam or SGD
         at ``learning_rate``, an optional cosine schedule (with warmup)
-        stepped once a step, and optional global-norm clipping."""
+        stepped once a step, and optional global-norm clipping.
+
+        The learning rate is a 0-d float32 tensor on the device that each
+        step computes from the step count there
+        (:func:`warmup_cosine_decay_device`), as optax does; SGD is
+        :class:`DeviceSGD`.  On the card Adam keeps its own count on the
+        device too (``capturable=True``), so every step, eager or replayed
+        from a CUDA graph, runs the same kernels; that flag is all that
+        differs from the CPU's step."""
         if self.optimizer is None:
             ocfg = self.network_config["training"]["config"]["optimizer"]
             optimizer_type = ocfg["type"]
@@ -483,24 +579,19 @@ class DreamNetwork:
                 )
             lr = float(ocfg["learning_rate"])
             params = list(self.model.parameters())
-            if optimizer_type == "adam":
-                self.optimizer = torch.optim.Adam(params, lr=lr)
-            else:
-                self.optimizer = torch.optim.SGD(params, lr=lr)
+            lr_t = torch.full((), lr, dtype=torch.float32, device=self.device)
+            self.optimizer = (torch.optim.Adam(params, lr=lr_t, capturable=self.device.type == "cuda")
+                              if optimizer_type == "adam" else DeviceSGD(params, lr=lr_t))
+            self._count = torch.full((), self.steps, dtype=torch.int32, device=self.device)
             schedule = ocfg.get("schedule")
             if schedule:
                 if schedule["type"] != "cosine":
                     raise ValueError(f"unknown schedule {schedule}")
-                warmup = int(schedule.get("warmup_steps", 0))
-                decay = int(schedule["decay_steps"])
-                end = float(schedule.get("end_value", 0.0))
-
-                def factor(step: int) -> float:
-                    value = warmup_cosine_decay(step, lr, warmup, decay, end)
-                    return value / lr if lr else 0.0
-
-                self._lr_factor = factor
-                self.scheduler = torch.optim.lr_scheduler.LambdaLR(self.optimizer, factor)
+                self._schedule = functools.partial(
+                    warmup_cosine_decay_device, peak_value=lr,
+                    warmup_steps=int(schedule.get("warmup_steps", 0)),
+                    decay_steps=int(schedule["decay_steps"]),
+                    end_value=float(schedule.get("end_value", 0.0)))
             clip = ocfg.get("grad_clip_norm")
             self._clip_norm = float(clip) if clip else None
 
@@ -516,26 +607,23 @@ class DreamNetwork:
 
     def load_optimizer_state(self, tree: Dict[str, Any]) -> None:
         """Resume from an optax state tree: Adam's moments, the step count
-        and the schedule's position."""
+        and the schedule's position.  The optimizer takes new state tensors,
+        so a CUDA graph of the step is dropped."""
         self.enable_training()
+        self.release_scanned_graph()
         count = optimizer_state_from_flax(tree, self.network_config["training"]["config"]["optimizer"],
                                           self.model.named_parameters(), self.optimizer)
         if count is None:
             return
         self.steps = count
-        if self.scheduler is not None:
-            lrs = [base * self._lr_factor(count) for base in self.scheduler.base_lrs]
-            state = self.scheduler.state_dict()
-            state.update(last_epoch=count, _step_count=count + 1, _last_lr=lrs)
-            self.scheduler.load_state_dict(state)
-            for group, lr in zip(self.optimizer.param_groups, lrs):
-                group["lr"] = lr
+        self._count.fill_(count)
 
     def enable_ema(self, decay: float) -> None:
         """Keep an exponential moving average of the parameters, updated after
         every train step as ``e * decay + p * (1 - decay)``."""
         if not 0.0 < decay < 1.0:
             raise ValueError(f"EMA decay must be in (0, 1), got {decay}")
+        self.release_scanned_graph()
         self.ema_decay = float(decay)
         self.ema_params = {
             name: p.detach().clone() for name, p in self.model.named_parameters()
@@ -554,7 +642,22 @@ class DreamNetwork:
         (``dream_tpu_torch.data.dataset.make_batch_processor``) and then the
         step."""
         self.enable_training()
+        self.release_scanned_graph()
         self._batch_processor = batch_processor
+        self._scanning = False
+
+    def enable_scanned_training(self, batch_processor: Callable) -> None:
+        """Train whole epochs over a set held on the device
+        (``dream_tpu/network.py:582-641``, a ``lax.scan`` of the fused step
+        there): :meth:`train_epoch_raw` runs each step's gather, the batch
+        processor, forward, loss, backward, clip, optimizer, schedule and
+        EMA with no host sync inside the epoch.  On the card the step is
+        captured once as a CUDA graph and replayed for each step; on the CPU
+        the same step runs in an eager loop (:meth:`train_epoch_raw_plain`).
+        Scanning is on one device, as in ``dream_tpu``: on a mesh
+        :meth:`train_epoch_raw` raises."""
+        self.enable_fused_training(batch_processor)
+        self._scanning = True
 
     def _stage_outputs(self, net_input: torch.Tensor,
                        variables: Optional[Dict[str, torch.Tensor]] = None) -> List[torch.Tensor]:
@@ -593,7 +696,11 @@ class DreamNetwork:
             return arrays
         return tuple(mesh_ops.process_local_batch(self._mesh, a) for a in arrays)
 
-    def _step(self, net_input: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    def _update(self, net_input: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        """One step's work (forward, loss, backward, clip, optimizer,
+        schedule, EMA) but ``steps``; on the card all of it on the device,
+        what a CUDA graph of the step holds.  Returns the loss before the
+        step."""
         if self.optimizer is None:
             raise RuntimeError("Optimizer must be defined. Use enable_training() first.")
         self.model.train()
@@ -606,24 +713,39 @@ class DreamNetwork:
             objective, loss = mesh_ops.global_loss(num, den, mesh)
         self.optimizer.zero_grad(set_to_none=True)
         objective.backward()
+        self._apply_gradients()
+        self.model.eval()
+        return loss.detach()
+
+    def _apply_gradients(self) -> None:
+        """The step on the gradients the parameters hold: averaged over the
+        data group on a mesh, clipped, the learning rate from the step
+        count, the optimizer's update, the count moved on and the EMA; all
+        on the device."""
         named = [(n, p) for n, p in self.model.named_parameters() if p.grad is not None]
         params = [p for _, p in named]
+        mesh = self._data_mesh()
         if mesh is not None:
             mesh_ops.reduce_gradients(params, mesh)
         if self._clip_norm is not None:
             clip_by_global_norm_([p.grad for p in params], self._clip_norm,
                                  [n in self._split for n, _ in named], self._mesh)
+        if self._schedule is not None:
+            lr = self._schedule(self._count)
+            for group in self.optimizer.param_groups:
+                group["lr"].copy_(lr)
         self.optimizer.step()
-        self.steps += 1
-        if self.scheduler is not None:
-            self.scheduler.step()
+        self._count.add_(1)
         if self.ema_params is not None:
             with torch.no_grad():
                 for name, p in self.model.named_parameters():
                     e = self.ema_params[name]
                     e.copy_(e * self.ema_decay + p * (1.0 - self.ema_decay))
-        self.model.eval()
-        return loss.detach()
+
+    def _step(self, net_input: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        loss = self._update(net_input, target)
+        self.steps += 1
+        return loss
 
     def train(self, network_input_heads: Sequence[torch.Tensor], target: torch.Tensor,
               local: bool = False) -> torch.Tensor:
@@ -654,17 +776,138 @@ class DreamNetwork:
                                       kp_projs_raw.to(self.device), **shard)
         return self._step(batch["image_rgb_input"], batch["belief_maps"])
 
+    def _epoch_rows(self, images: torch.Tensor, kp_projs_raw: torch.Tensor, index_matrix
+                    ) -> torch.Tensor:
+        """``index_matrix`` as int64 rows on the set's device (one upload
+        when it is a host array), after the checks of a scanned epoch."""
+        if not self._scanning or self._batch_processor is None:
+            raise RuntimeError("Call enable_scanned_training(batch_processor) first.")
+        if self._mesh is not None:
+            raise ValueError("scanned training runs on one device, as in dream_tpu; on a mesh, "
+                             "train step by step (train_raw)")
+        if _indexed(images.device) != _indexed(self.device) or kp_projs_raw.device != images.device:
+            raise ValueError(f"the set lies on {images.device} and {kp_projs_raw.device}, the "
+                             f"network on {self.device}")
+        rows = torch.as_tensor(index_matrix).to(images.device, torch.int64)
+        if rows.dim() != 2:
+            raise ValueError(f"index_matrix must be [n_steps, batch], got {tuple(rows.shape)}")
+        return rows
+
+    def _scan_update(self, generator: Optional[torch.Generator], images: torch.Tensor,
+                     kp_projs_raw: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
+        """One scanned step's device work: the gather of ``row``, the batch
+        processor and :meth:`_update`."""
+        batch = self._batch_processor(generator, images[row], kp_projs_raw[row])
+        return self._update(batch["image_rgb_input"], batch["belief_maps"])
+
+    def train_epoch_raw_plain(self, generator: Optional[torch.Generator], images: torch.Tensor,
+                              kp_projs_raw: torch.Tensor, index_matrix) -> torch.Tensor:
+        """:meth:`train_epoch_raw` as an eager loop of the same step on any
+        device: the plain version of the CUDA graph, which the CPU runs and
+        the card's checks hold the graph's epochs to."""
+        rows = self._epoch_rows(images, kp_projs_raw, index_matrix)
+        losses = torch.empty(rows.shape[0], dtype=torch.float32, device=images.device)
+        for i in range(rows.shape[0]):
+            losses[i] = self._scan_update(generator, images, kp_projs_raw, rows[i])
+            self.steps += 1
+        return losses
+
     def train_epoch_raw(self, generator: Optional[torch.Generator], images: torch.Tensor,
-                        kp_projs_raw: torch.Tensor, index_matrix, local: bool = False
-                        ) -> torch.Tensor:
-        """One epoch over a set held on the device: a :meth:`train_raw` step
-        for each row of ``index_matrix`` (``[n_steps, batch]`` positions into
-        ``images`` and ``kp_projs_raw``, e.g.
-        ``DeviceCachedLoader.epoch_index_matrix``).  Returns the steps'
-        losses ``[n_steps]`` on the device."""
-        rows = torch.as_tensor(np.asarray(index_matrix), device=images.device)
-        losses = [self.train_raw(generator, images[row], kp_projs_raw[row], local) for row in rows]
-        return torch.stack(losses) if losses else torch.zeros(0, device=images.device)
+                        kp_projs_raw: torch.Tensor, index_matrix) -> torch.Tensor:
+        """One epoch over a set held on the device (``dream_tpu/network.py:643-657``):
+        a step for each row of ``index_matrix`` (``[n_steps, batch]``
+        positions into ``images`` and ``kp_projs_raw``, a host array, e.g.
+        ``DeviceCachedLoader.epoch_index_matrix``, uploaded once, or a
+        tensor on the device).
+        Returns the steps' losses ``[n_steps]`` on the device, with no host
+        sync inside the epoch.  Needs :meth:`enable_scanned_training`.
+
+        On the card: where no graph of the step is held for these inputs,
+        the epoch's first step runs eagerly on a side stream (cuDNN settles
+        its algorithms, the optimizer its state), the second is captured and
+        the rest replay the graph; later epochs replay it from their first
+        step.  Before each replay the row's positions are copied into the
+        graph's index tensor on the device, and after it the loss out of
+        it.  A graph is captured anew when the batch shape, the set, the
+        generator, the processor, cuDNN's settings or any tensor it holds
+        (parameters, buffers, optimizer state, learning rate, EMA) has been
+        replaced; a failed capture or replay raises.  On the CPU the epoch
+        is :meth:`train_epoch_raw_plain`."""
+        if not images.is_cuda:
+            return self.train_epoch_raw_plain(generator, images, kp_projs_raw, index_matrix)
+        rows = self._epoch_rows(images, kp_projs_raw, index_matrix)
+        n_steps = rows.shape[0]
+        losses = torch.empty(n_steps, dtype=torch.float32, device=images.device)
+        graph, first = self._epoch_graph, 0
+        if n_steps and (graph is None or graph.key != self._graph_key(generator, images,
+                                                                      kp_projs_raw, rows)):
+            self.release_scanned_graph()
+            current = torch.cuda.current_stream(images.device)
+            side = torch.cuda.Stream(images.device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                losses[0] = self._scan_update(generator, images, kp_projs_raw, rows[0])
+            current.wait_stream(side)
+            self.steps += 1
+            first = 1
+            if n_steps > 1:
+                graph = self._capture_epoch_graph(generator, images, kp_projs_raw, rows)
+        for i in range(first, n_steps):
+            graph.row.copy_(rows[i])
+            graph.graph.replay()
+            losses[i].copy_(graph.loss)
+        replays = n_steps - first
+        if replays:
+            self.steps += replays
+            warp_batch_kernel.count_replays(graph.warp_launches, replays)
+        return losses
+
+    def _graph_key(self, generator, images, kp_projs_raw, rows) -> tuple:
+        """What a CUDA graph of the step was captured for: the batch
+        size, the set, the generator, the processor, cuDNN's and cuBLAS's
+        settings, every tensor the step reads or moves in place (by
+        address) and the quantized convs' modes."""
+        held = [*self.model.parameters(), *self.model.buffers(), self._count]
+        for group in self.optimizer.param_groups:
+            held.append(group["lr"])
+        for state in self.optimizer.state.values():
+            held.extend(v for v in state.values() if torch.is_tensor(v))
+        if self.ema_params is not None:
+            held.extend(self.ema_params.values())
+        return (rows.shape[1], images.data_ptr(), tuple(images.shape), images.dtype,
+                kp_projs_raw.data_ptr(), tuple(kp_projs_raw.shape), kp_projs_raw.dtype,
+                id(generator), id(self._batch_processor), self._clip_norm, self.ema_decay,
+                torch.backends.cudnn.enabled, torch.backends.cudnn.deterministic,
+                torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32,
+                tuple(t.data_ptr() for t in held),
+                tuple(conv.mode for conv in quant_ops.quant_convs(self.model).values()))
+
+    def _capture_epoch_graph(self, generator, images, kp_projs_raw, rows) -> "_EpochGraph":
+        """Capture one scanned step (its positions read from a static index
+        tensor) as a CUDA graph; capturing runs nothing."""
+        key = self._graph_key(generator, images, kp_projs_raw, rows)
+        row = rows[1].clone()
+        graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            graph.register_generator_state(generator)
+        captured_before = warp_batch_kernel.captured
+        with torch.cuda.graph(graph):
+            loss = self._scan_update(generator, images, kp_projs_raw, row)
+        # The graph holds the set and the generator it was captured on, so
+        # that the addresses in its key stay theirs.
+        self._epoch_graph = _EpochGraph(graph, row, loss, warp_batch_kernel.captured - captured_before,
+                                        key, (images, kp_projs_raw, generator))
+        return self._epoch_graph
+
+    def release_scanned_graph(self) -> None:
+        """Drop the CUDA graph of the scanned step, and the gradients its
+        memory pool (one step's activations) holds; the next scanned epoch
+        captures anew."""
+        if self._epoch_graph is not None:
+            self._epoch_graph = None
+            if self.optimizer is not None:
+                self.optimizer.zero_grad(set_to_none=True)
 
     @torch.no_grad()
     def loss(self, network_input_heads: Sequence[torch.Tensor], target: torch.Tensor,
@@ -698,6 +941,7 @@ class DreamNetwork:
                              f"{self.device}")
         if self.int8_impl is not None or self._pipeline is not None:
             raise ValueError("shard the float network before enabling int8 or pipelined inference")
+        self.release_scanned_graph()
         self._mesh = mesh
         self._split = mesh_ops.shard_params(
             self.model, mesh, self.optimizer,
@@ -788,6 +1032,7 @@ class DreamNetwork:
                 "take (it covers the single-stage quarter-resolution vgg hourglass); use "
                 "'quantconv' or 'auto'"
             )
+        self.release_scanned_graph()
         batches = (torch.as_tensor(b).to(self.device, torch.float32).permute(0, 3, 1, 2)
                    for b in calibration_net_inputs)
         if self.architecture_type == "resnet":

@@ -33,9 +33,10 @@ class KeypointAffine(NamedTuple):
 
     def __call__(self, keypoints):
         if isinstance(keypoints, torch.Tensor):
-            scale = torch.tensor(self.scale, dtype=keypoints.dtype, device=keypoints.device)
-            offset = torch.tensor(self.offset, dtype=keypoints.dtype, device=keypoints.device)
-            return keypoints * scale + offset
+            # Per axis with Python scalars: no host-to-device copy (which a
+            # CUDA graph could not hold), the same roundings.
+            return torch.stack([keypoints[..., i] * self.scale[i] + self.offset[i] for i in (0, 1)],
+                               dim=-1)
         return self.apply_numpy(keypoints)
 
     def apply_numpy(self, keypoints):

@@ -52,6 +52,22 @@ def resize_weight_matrix(input_size: int, output_size: int) -> np.ndarray:
     return np.ascontiguousarray(weights.T)
 
 
+@functools.cache
+def _cuda_weight_matrix(input_size: int, output_size: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(resize_weight_matrix(input_size, output_size)).to(device)
+
+
+def _weight_matrix_for(x: torch.Tensor, input_size: int, output_size: int) -> torch.Tensor:
+    """:func:`resize_weight_matrix` on ``x``'s device.  On a CUDA device a
+    plain tensor gets a copy uploaded once and kept: a CUDA graph can hold
+    no host-to-device copy, and its replays read the same tensor.  A
+    tensor being traced (``torch.export``'s fake tensors) gets a fresh one,
+    so that no traced value is kept."""
+    if x.is_cuda and type(x) is torch.Tensor:
+        return _cuda_weight_matrix(input_size, output_size, x.device)
+    return torch.from_numpy(resize_weight_matrix(input_size, output_size)).to(x.device)
+
+
 def resize_bilinear(images: torch.Tensor, resolution: Sequence[int]) -> torch.Tensor:
     """Antialiased bilinear resize of ``[B, H, W, C]`` images to (width, height).
 
@@ -63,11 +79,9 @@ def resize_bilinear(images: torch.Tensor, resolution: Sequence[int]) -> torch.Te
     h_in, w_in = x.shape[-3], x.shape[-2]
     x = x.permute(0, 3, 1, 2)  # [B, C, H, W]
     if h_in != h_out:
-        t_h = torch.from_numpy(resize_weight_matrix(h_in, h_out)).to(x.device)
-        x = torch.matmul(t_h, x)
+        x = torch.matmul(_weight_matrix_for(x, h_in, h_out), x)
     if w_in != w_out:
-        t_w = torch.from_numpy(resize_weight_matrix(w_in, w_out)).to(x.device)
-        x = torch.matmul(x, t_w.T)
+        x = torch.matmul(x, _weight_matrix_for(x, w_in, w_out).T)
     return x.permute(0, 2, 3, 1)
 
 
@@ -105,9 +119,14 @@ def normalize_images(
     """0-255 images -> ``(x / 255 - mean) / stdev`` (reference
     dream/network.py:449-456)."""
     x = images.to(torch.float32) / input_scale
-    m = torch.tensor(mean, dtype=torch.float32, device=x.device)
-    s = torch.tensor(stdev, dtype=torch.float32, device=x.device)
-    return (x - m) / s
+    return (x - _filled(mean, x.device)) / _filled(stdev, x.device)
+
+
+def _filled(values: Sequence[float], device: torch.device) -> torch.Tensor:
+    """``torch.tensor(values)`` in float32 made by fills on ``device``: no
+    host-to-device copy, which a CUDA graph could not hold."""
+    return torch.stack([torch.full((), float(v), dtype=torch.float32, device=device)
+                        for v in values])
 
 
 def preprocess_and_normalize(

@@ -15,7 +15,10 @@ bilinear taps and reflect-101 borders.
   The CPU path and the yardstick for the kernel.
 - :data:`warp_batch_kernel`: the wrapper of ``csrc/warp_kernel.cu``, built
   with ``nvcc`` on first use (:mod:`dream_tpu_torch.ops.cuda_build`);
-  ``warp_batch_kernel.launches`` counts its launches.
+  ``warp_batch_kernel.launches`` counts its launches.  A launch recorded
+  into a CUDA graph under capture runs only when the graph is replayed:
+  it counts in ``captured`` instead, and whoever replays the graph adds
+  its launches with ``count_replays``.
 - :func:`warp_batch`: picks by the tensor's device, never by catching an
   error: a CUDA tensor goes to the kernel, a CPU tensor to the plain version.
 
@@ -39,7 +42,9 @@ def inverse_affines(affines: torch.Tensor) -> torch.Tensor:
     if affines.dim() != 3 or tuple(affines.shape[1:]) != (2, 3):
         raise ValueError(f"affines must be [B, 2, 3], got {tuple(affines.shape)}")
     a = affines.to(torch.float32)
-    bottom = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32, device=a.device)
+    # [0, 0, 1] made on the device: no host-to-device copy, which a CUDA
+    # graph could not hold.
+    bottom = torch.eye(3, dtype=torch.float32, device=a.device)[2:]
     full = torch.cat([a, bottom.expand(a.shape[0], 1, 3)], dim=1)
     inv = torch.linalg.inv_ex(full).inverse
     return inv[:, :2, :].reshape(-1, 6).contiguous()
@@ -108,10 +113,13 @@ def warp_batch_plain(images: torch.Tensor, affines: torch.Tensor) -> torch.Tenso
 
 
 class WarpKernel:
-    """Callable wrapper of the CUDA warp kernel with a launch counter."""
+    """Callable wrapper of the CUDA warp kernel with a launch counter:
+    ``launches`` counts the kernels run, ``captured`` the launches recorded
+    into CUDA graphs, which run once a replay."""
 
     def __init__(self):
         self.launches = 0
+        self.captured = 0
         self._lib: Optional[ctypes.CDLL] = None
 
     def load(self) -> ctypes.CDLL:
@@ -153,13 +161,22 @@ class WarpKernel:
         lib = self.load()
         with torch.cuda.device(images.device):
             stream = torch.cuda.current_stream(images.device).cuda_stream
+            capturing = torch.cuda.is_current_stream_capturing()
             err = lib.warp_kernel_launch(
                 images.data_ptr(), inverse.data_ptr(), out.data_ptr(), b, h, w, c, stream
             )
         if err != 0:
             raise RuntimeError(f"warp kernel launch failed: CUDA error {err}")
-        self.launches += 1
+        if capturing:
+            self.captured += 1
+        else:
+            self.launches += 1
         return out
+
+    def count_replays(self, launches_in_graph: int, replays: int) -> None:
+        """Count the launches of ``replays`` replays of a CUDA graph that
+        holds ``launches_in_graph`` launches of this kernel."""
+        self.launches += launches_in_graph * replays
 
 
 warp_batch_kernel = WarpKernel()

@@ -161,9 +161,11 @@ def train_network_for_run(run: Dict[str, Any], device: Any, mesh=None):
     from dream_tpu_torch.data.dataset import make_batch_processor
     from dream_tpu_torch.network import DreamNetwork
 
-    net = DreamNetwork(copy.deepcopy(run["config"]), device=device, seed=run.get("seed", 0))
+    config, seed = copy.deepcopy(run["config"]), run.get("seed", 0)
     if run.get("params_path"):
-        net.load_network_params(run["params_path"])
+        net = DreamNetwork.from_checkpoint(config, run["params_path"], device=device, seed=seed)
+    else:
+        net = DreamNetwork(config, device=device, seed=seed)
     tcfg = net.network_config["training"]["config"]
     net.enable_fused_training(make_batch_processor(
         tuple(tcfg["image_raw_resolution"]), net.trained_net_input_resolution(),

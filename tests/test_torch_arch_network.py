@@ -241,8 +241,7 @@ def test_saved_resnet_loads_in_dream_tpu(tmp_path):
         leaves = dict(jax.tree_util.tree_leaves_with_path(ref_net.variables[collection]))
         for path, leaf in jax.tree_util.tree_leaves_with_path(ours[collection]):
             np.testing.assert_array_equal(np.asarray(leaves[path]), leaf)
-    port32 = DreamNetwork(copy.deepcopy(cfg), device="cpu")
-    port32.load_network_params(params_path)
+    port32 = DreamNetwork.from_checkpoint(copy.deepcopy(cfg), params_path, device="cpu")
     belief, _ = port32.inference(torch.from_numpy(x))
     np.testing.assert_allclose(belief.numpy(), np.asarray(ref_net.inference(x)[0]), atol=1e-5,
                                rtol=0)

@@ -62,8 +62,7 @@ def port_network(stem):
     cfg = load_yaml(config)
     assert cfg["architecture"]["compute_dtype"] == "bfloat16"
     cfg["architecture"]["compute_dtype"] = "float32"
-    net = DreamNetwork(cfg, device="cpu")
-    net.load_network_params(params)
+    net = DreamNetwork.from_checkpoint(cfg, params, device="cpu")
     return net
 
 

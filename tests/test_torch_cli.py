@@ -164,8 +164,7 @@ def env(tmp_path_factory):
     jax_generate_synthetic_ndds(train_data, n_frames=16, image_resolution=RES, seed=11,
                                 out_of_frame_fraction=0.0)
     cfg = network_config()
-    net = DreamNetwork(copy.deepcopy(cfg), device="cpu")
-    net.load_network_params(R5_PARAMS)
+    net = DreamNetwork.from_checkpoint(copy.deepcopy(cfg), R5_PARAMS, device="cpu")
     params = str(root / "net.msgpack")
     save_flax_checkpoint(params, state_to_flax(net.model.state_dict()))
     save_yaml(cfg, str(root / "net.yaml"))
@@ -404,7 +403,7 @@ def test_jax_optimizer_state_resumes_in_port(tmp_path):
                                    ARCH["image_normalization"], augment=False)
     net.enable_fused_training(process)
     net.load_optimizer_state(load_flax_checkpoint(opt_path))
-    assert net.steps == 3 and net.scheduler.last_epoch == 3
+    assert net.steps == 3 and int(net._count) == 3
 
     # dream_tpu's optax step on the port's gradient of the batch (the two
     # models' gradients are held together in tests/test_torch_train.py).

@@ -231,6 +231,42 @@ def test_compute_dtype_is_the_one_that_runs(tmp_path):
     assert load_yaml(path)["architecture"]["compute_dtype"] == "float32"
 
 
+def test_checkpoint_load_draws_no_initial_parameters(tmp_path, monkeypatch):
+    """A network built to load a checkpoint (``create_network_from_config_file``
+    with parameters, ``DreamNetwork.from_checkpoint``) draws no initial
+    values: it is built on the meta device.  Once loaded it holds the
+    checkpoint's state whole, its non-persistent buffers (a fixed
+    soft-argmax ``beta``, the QAT convs' ``act_amax``) as built, and
+    infers as the network that was saved."""
+    from dream_tpu_torch.models.quant import quant_convs
+    from dream_tpu_torch.network import DreamNetwork, create_network_from_config_file
+
+    cfg = load_yaml(os.path.join(ROOT, "trained_models/results_r5/vggq/dream_vgg_q_r5.yaml"))
+    cfg["architecture"].update(compute_dtype="float32", quant_mode="qat",
+                               output_heads=["belief_maps", "keypoints"],
+                               spatial_softmax={"learned_beta": False, "initial_beta": 3.0})
+    cfg["training"]["config"]["net_input_resolution"] = [64, 64]
+    cfg["training"]["config"]["net_output_resolution"] = [16, 16]
+    net = DreamNetwork(cfg, device="cpu", seed=3)
+    net.save_network(str(tmp_path), "net")
+
+    def no_draws(*args, **kwargs):
+        raise AssertionError("an initial value was drawn")
+
+    monkeypatch.setattr(torch.nn.init, "trunc_normal_", no_draws)
+    loaded = create_network_from_config_file(str(tmp_path / "net.yaml"), str(tmp_path / "net.msgpack"),
+                                             device="cpu")
+    saved, state = net.model.state_dict(), loaded.model.state_dict()
+    assert set(state) == set(saved) and all(torch.equal(state[k], v) for k, v in saved.items())
+    assert torch.equal(loaded.model.beta, torch.full((7,), 3.0))
+    assert [float(c.act_amax) for c in quant_convs(loaded.model).values()] == [0.0] * len(quant_convs(net.model))
+    x = torch.from_numpy(np.random.RandomState(0).uniform(-1, 1, (1, 64, 64, 3)).astype(np.float32))
+    for ours, theirs in zip(loaded.inference(x), net.inference(x)):
+        assert torch.equal(ours, theirs)
+    with pytest.raises(AssertionError, match="drawn"):
+        DreamNetwork(cfg, device="cpu")
+
+
 FORBIDDEN_IMPORTS = {
     "jax", "jaxlib", "flax", "optax", "dream_tpu", "yaml", "msgpack", "PIL", "cv2", "torchvision",
     "matplotlib", "webcolors", "pandas",

@@ -55,6 +55,13 @@ def _two_torch_threads():
     torch.set_num_threads(threads)
 
 
+@pytest.fixture(scope="module")
+def initial_network():
+    """``_vgg_config``'s network with its initial parameters (seed 0), built
+    once: the draws take seconds.  Each test takes a copy."""
+    return DreamNetwork(_vgg_config(), device="cpu")
+
+
 def _live_raw_keypoints(net, frames):
     """The per-frame live pipeline: the contract the artifact reproduces."""
     return np.stack([net.keypoints_from_image(f)["detected_keypoints"] for f in frames])
@@ -67,8 +74,8 @@ def _assert_same_detections(got, want):
     np.testing.assert_allclose(got[detected], want[detected], atol=1e-3, rtol=0)
 
 
-def test_export_roundtrip_matches_live_network():
-    net = DreamNetwork(_vgg_config(), device="cpu")
+def test_export_roundtrip_matches_live_network(initial_network):
+    net = copy.deepcopy(initial_network)
     data = export_inference(net, raw_resolution=(128, 96), batch_size=2)
     assert isinstance(data, bytes) and len(data) > 1000
     call = load_inference(data)
@@ -79,8 +86,8 @@ def test_export_roundtrip_matches_live_network():
     _assert_same_detections(kps.numpy(), _live_raw_keypoints(net, frames))
 
 
-def test_export_int8_pipeline():
-    net = DreamNetwork(_vgg_config(), device="cpu")
+def test_export_int8_pipeline(initial_network):
+    net = copy.deepcopy(initial_network)
     rng = np.random.RandomState(1)
     net.enable_int8_inference([torch.from_numpy(rng.uniform(-1, 1, (2, 64, 64, 3)).astype(np.float32))])
     data = export_inference(net, raw_resolution=(128, 96), batch_size=1)
@@ -94,12 +101,12 @@ def test_export_int8_pipeline():
     _assert_same_detections(kps.numpy(), _live_raw_keypoints(net, frames))
 
 
-def test_export_cpu_device_explicit(tmp_path, capsys):
+def test_export_cpu_device_explicit(initial_network, tmp_path, capsys):
     """The export CLI on ``--device cpu``: a loadable CPU artifact, its
     sidecar, and the self-test against the live network."""
     cfg = _vgg_config()
     cfg["architecture"]["compute_dtype"] = "float32"
-    net = DreamNetwork(copy.deepcopy(cfg), device="cpu")
+    net = initial_network  # its parameters; float32, as the config says
     params, config = str(tmp_path / "net.msgpack"), str(tmp_path / "net.yaml")
     save_flax_checkpoint(params, state_to_flax(net.model.state_dict()))
     save_yaml(cfg, config)
@@ -119,13 +126,13 @@ def test_export_cpu_device_explicit(tmp_path, capsys):
             export_cli.main(["-i", params, "-o", out, "-b", "1", "--raw-resolution", "64x64"])
 
 
-def test_export_cli_int8_self_test_on_calibration_frames(tmp_path, capsys):
+def test_export_cli_int8_self_test_on_calibration_frames(initial_network, tmp_path, capsys):
     """With ``--int8-calibration-dir`` at the artifact's resolution, the
     self-test holds the int8 artifact against the live int8 network on a
     frame of that dataset."""
     cfg = _vgg_config()
     cfg["architecture"]["compute_dtype"] = "float32"
-    net = DreamNetwork(copy.deepcopy(cfg), device="cpu")
+    net = initial_network  # its parameters; float32, as the config says
     params, config = str(tmp_path / "net.msgpack"), str(tmp_path / "net.yaml")
     save_flax_checkpoint(params, state_to_flax(net.model.state_dict()))
     save_yaml(cfg, config)
@@ -141,9 +148,9 @@ def test_export_cli_int8_self_test_on_calibration_frames(tmp_path, capsys):
         assert json.load(f)["int8"] is True
 
 
-def test_artifact_metadata_sidecar(tmp_path):
+def test_artifact_metadata_sidecar(initial_network, tmp_path):
     cfg = _vgg_config()
-    net = DreamNetwork(copy.deepcopy(cfg), device="cpu")
+    net = copy.deepcopy(initial_network)
     meta = artifact_metadata(net, (128, 96), 1)
     ref = jax_export.artifact_metadata(jax_network.DreamNetwork(copy.deepcopy(cfg)), (128, 96), 1)
     assert meta.keys() == ref.keys()
@@ -179,8 +186,7 @@ def r5_artifacts(tmp_path_factory):
         "training": {"config": {"net_input_resolution": [96, 96],
                                 "optimizer": {"type": "adam", "learning_rate": 1e-4}}},
     }
-    net = DreamNetwork(copy.deepcopy(cfg), device="cpu")
-    net.load_network_params(R5_PARAMS)
+    net = DreamNetwork.from_checkpoint(copy.deepcopy(cfg), R5_PARAMS, device="cpu")
     jax_net = jax_network.create_network_from_config_data(copy.deepcopy(cfg))
     jax_net.variables = jax.tree_util.tree_map(jnp.asarray, state_to_flax(net.model.state_dict()))
     path = tmp_path_factory.mktemp("export") / "r5.pt2"

@@ -1,5 +1,6 @@
 """The CUDA kernels (score, warp, int8 conv) against their plain torch
-versions, on the card.
+versions, on the card; and the scanned epoch's CUDA graph against its plain
+version, the eager loop of the same step.
 
 Needs an NVIDIA GPU with nvcc (marker ``cuda``); skips elsewhere.  This file
 imports neither jax nor dream_tpu, so it also runs where only torch is
@@ -8,10 +9,14 @@ installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernel_cuda.py
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
 
+from dream_tpu_torch.data.dataset import make_batch_processor
+from dream_tpu_torch.network import DreamNetwork
 from dream_tpu_torch.data.augment import DEFAULT_AUGMENT, affine_matrices, sample_augment_params
 from dream_tpu_torch.models.vgg_int8_deploy import CHAIN, PRE, chain_shapes
 from dream_tpu_torch.ops import conv_int8, score_kernel, warp
@@ -325,3 +330,215 @@ def test_launch_counts_hold_across_threads(cuda):
     torch.cuda.synchronize()
     assert not any(t.is_alive() for t in threads)
     assert (score.launches - before[0], conv.launches - before[1]) == (n_threads * calls,) * 2
+
+
+# The scanned epoch: a small hourglass (4 key points, 64x64 input) on 12
+# frames of 128x96 held on the card, batch 4, three steps an epoch,
+# augmentation on (the warp kernel and the generator in the graph), Adam
+# under clipping and a warmup-cosine schedule, an EMA.
+SCAN_CONFIG = {
+    "architecture": {"type": "vgg", "target": "belief_maps", "input_heads": ["image_rgb"],
+                     "output_heads": ["belief_maps"], "loss": {"type": "mse"},
+                     "image_normalization": {"mean": [0.5] * 3, "stdev": [0.5] * 3},
+                     "image_preprocessing": "shrink-and-crop"},
+    "manipulator": {"name": "panda", "keypoints": [{"name": f"kp{i}"} for i in range(4)]},
+    "training": {"config": {"net_input_resolution": [64, 64], "optimizer": {
+        "type": "adam", "learning_rate": 1e-4, "grad_clip_norm": 0.25,
+        "schedule": {"type": "cosine", "decay_steps": 20, "warmup_steps": 2}}}},
+}
+
+
+@pytest.fixture
+def optimizer():
+    """The scanned networks' optimizer; a test parametrizes it."""
+    return "adam"
+
+
+@pytest.fixture
+def scan_pair(cuda, monkeypatch, optimizer):
+    """Two networks from one start, each scanning, cuDNN deterministic; the
+    set and three epochs' index matrices on the card."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    cfg = copy.deepcopy(SCAN_CONFIG)
+    cfg["training"]["config"]["optimizer"]["type"] = optimizer
+    scanned = DreamNetwork(cfg, device=cuda, seed=3)
+    eager = copy.deepcopy(scanned)
+    for net in (scanned, eager):
+        net.enable_ema(0.9)
+        net.enable_scanned_training(make_batch_processor(
+            (128, 96), (64, 64), (16, 16), "shrink-and-crop", SCAN_CONFIG["architecture"]["image_normalization"],
+            augment=True))
+    rng = np.random.RandomState(4)
+    images = torch.from_numpy(rng.randint(0, 256, (12, 96, 128, 3)).astype(np.uint8)).to(cuda)
+    kps = torch.from_numpy(rng.uniform(20, 90, (12, 4, 2)).astype(np.float32)).to(cuda)
+    matrices = [torch.from_numpy(rng.permutation(12).reshape(3, 4)).to(cuda) for _ in range(3)]
+    return scanned, eager, images, kps, matrices
+
+
+def _held(net):
+    out = {f"model.{k}": v for k, v in net.model.state_dict().items()}
+    out.update({f"ema.{k}": v for k, v in net.ema_params.items()})
+    for name, p in net.model.named_parameters():
+        out.update({f"adam.{name}.{k}": v for k, v in net.optimizer.state.get(p, {}).items()})
+    return out
+
+
+def _assert_same(scanned, eager, losses_s, losses_e):
+    torch.cuda.synchronize()
+    assert torch.equal(losses_s, losses_e) and torch.isfinite(losses_s).all()
+    a, b = _held(scanned), _held(eager)
+    assert set(a) == set(b) and [k for k in a if not torch.equal(a[k], b[k])] == []
+    assert scanned.steps == eager.steps
+    if isinstance(scanned.optimizer, torch.optim.Adam):
+        assert len(a) > 3 * len(list(scanned.model.parameters()))
+        assert {int(v) for k, v in a.items() if k.endswith(".step")} == {scanned.steps}
+    assert int(scanned.optimizer_state()["1"]["1"]["count"]) == scanned.steps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("optimizer", ["adam", "sgd"])
+def test_scanned_epochs_equal_the_eager_loop(scan_pair, optimizer):
+    """Adam with capturable state, and SGD through ``DeviceSGD``."""
+    scanned, eager, images, kps, matrices = scan_pair
+    gs, ge = (torch.Generator(device="cuda").manual_seed(5) for _ in range(2))
+    start = copy.deepcopy(scanned.model.state_dict())
+    losses_s = torch.cat([scanned.train_epoch_raw(gs, images, kps, m) for m in matrices[:2]])
+    losses_e = torch.cat([eager.train_epoch_raw_plain(ge, images, kps, m) for m in matrices[:2]])
+    _assert_same(scanned, eager, losses_s, losses_e)
+    assert scanned.steps == 6
+    assert any(not torch.equal(v, start[k]) for k, v in scanned.model.state_dict().items())
+    # The generators moved alike: replays drew fresh augmentation.
+    assert torch.equal(gs.get_state(), ge.get_state())
+    assert len(set(losses_s.tolist())) == 6
+
+
+@pytest.mark.cuda
+def test_load_optimizer_state_captures_again(scan_pair):
+    scanned, eager, images, kps, matrices = scan_pair
+    gs, ge = (torch.Generator(device="cuda").manual_seed(6) for _ in range(2))
+    scanned.train_epoch_raw(gs, images, kps, matrices[0])
+    eager.train_epoch_raw_plain(ge, images, kps, matrices[0])
+    graph = scanned._epoch_graph
+    assert graph is not None
+    tree = scanned.optimizer_state()
+    for net in (scanned, eager):
+        net.load_optimizer_state(tree)
+    assert scanned._epoch_graph is None
+    losses_s = scanned.train_epoch_raw(gs, images, kps, matrices[1])
+    losses_e = eager.train_epoch_raw_plain(ge, images, kps, matrices[1])
+    assert scanned._epoch_graph is not None and scanned._epoch_graph is not graph
+    _assert_same(scanned, eager, losses_s, losses_e)
+    # A later epoch replays the new graph from its first step.
+    graph = scanned._epoch_graph
+    losses_s = scanned.train_epoch_raw(gs, images, kps, matrices[2])
+    losses_e = eager.train_epoch_raw_plain(ge, images, kps, matrices[2])
+    assert scanned._epoch_graph is graph
+    _assert_same(scanned, eager, losses_s, losses_e)
+
+
+@pytest.mark.cuda
+def test_warp_launches_count_the_replays(scan_pair):
+    scanned, _, images, kps, matrices = scan_pair
+    g = torch.Generator(device="cuda").manual_seed(7)
+    kernel = warp.warp_batch_kernel
+    launches, captured = kernel.launches, kernel.captured
+    scanned.train_epoch_raw(g, images, kps, matrices[0])  # eager step, capture, two replays
+    assert (kernel.launches - launches, kernel.captured - captured) == (3, 1)
+    assert scanned._epoch_graph.warp_launches == 1
+    launches = kernel.launches
+    scanned.train_epoch_raw(g, images, kps, matrices[1])  # three replays
+    assert (kernel.launches - launches, kernel.captured - captured) == (3, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("optimizer", ["adam", "sgd"])
+def test_card_steps_match_the_cpu_steps(cuda, monkeypatch, optimizer):
+    """The card's step (capturable Adam or ``DeviceSGD``, the learning rate
+    from the count on the device) against the CPU's, which
+    tests/test_torch_train.py, test_torch_cli.py and
+    test_torch_scanned_epoch.py hold to optax and dream_tpu, with clipping,
+    warmup and cosine, and an EMA, from one start, the models in float64
+    (``to_float64``; the maps, the loss, the learning rate and its
+    schedule stay float32), TF32 off:
+
+    - two whole ``train_raw`` steps on the same frames, at
+      tests/test_torch_train.py's tolerances (losses rtol 1e-5, parameters
+      and EMA atol 2e-6);
+    - then four steps on the same gradients (``_apply_gradients``: clip,
+      learning rate, update, count, EMA), with a resume of both from the
+      CPU's optax tree (``load_optimizer_state``) before the last two:
+      the learning rate at every step and the counts equal, parameters and
+      EMA within atol 2e-6, Adam's moments within rtol 1e-5.
+
+    Whole steps part further on: the two devices' sums round apart, the
+    rounding grows with each step's new parameters, and Adam lifts
+    gradients near its epsilon to the learning rate's size: on the H100
+    the card's Adam parts from the CPU's past these tolerances within a
+    few whole steps, capturable or not, so the later steps share their
+    gradients."""
+    from dream_tpu_torch.parallel.dryrun import to_float64
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = copy.deepcopy(SCAN_CONFIG)
+    # SGD at a rate under which the clipped steps move the parameters past
+    # the tolerance.
+    cfg["training"]["config"]["optimizer"].update(type=optimizer,
+                                                  learning_rate=1e-4 if optimizer == "adam" else 1.0)
+    nets = {"cpu": DreamNetwork(copy.deepcopy(cfg), device="cpu", seed=3),
+            "card": DreamNetwork(copy.deepcopy(cfg), device=cuda, seed=3)}
+    nets["card"].model.load_state_dict(nets["cpu"].model.state_dict())
+    cpu, card = nets["cpu"], nets["card"]
+    start = copy.deepcopy(cpu.model.state_dict())
+    rng = np.random.RandomState(8)
+    raw = torch.from_numpy(rng.randint(0, 256, (2, 4, 96, 128, 3)).astype(np.uint8))
+    kps = torch.from_numpy(rng.uniform(20, 90, (2, 4, 4, 2)).astype(np.float32))
+    process = make_batch_processor((128, 96), (64, 64), (16, 16), "shrink-and-crop",
+                                   SCAN_CONFIG["architecture"]["image_normalization"], augment=False)
+    losses = {}
+    for name, net in nets.items():
+        to_float64(net)
+        net.enable_ema(0.9)
+        net.enable_fused_training(process)
+        losses[name] = torch.stack([net.train_raw(None, raw[i], kps[i]) for i in range(2)]).cpu()
+    np.testing.assert_allclose(losses["card"].numpy(), losses["cpu"].numpy(), rtol=1e-5)
+
+    def assert_close(what):
+        theirs = cpu.model.state_dict()
+        for k, v in card.model.state_dict().items():
+            np.testing.assert_allclose(v.cpu().numpy(), theirs[k].numpy(), atol=2e-6, rtol=0,
+                                       err_msg=f"{what}: {k}")
+        for k, v in card.ema_params.items():
+            np.testing.assert_allclose(v.cpu().numpy(), cpu.ema_params[k].numpy(), atol=2e-6, rtol=0,
+                                       err_msg=f"{what}: EMA {k}")
+
+    assert_close("two whole steps")
+    # Gradients drawn at two scales: clipped (the global norm far above
+    # 0.25) and not (far below).
+    for step, scale in zip(range(2, 6), (1e-2, 1e-7, 1e-2, 1e-7)):
+        if step == 4:
+            tree = cpu.optimizer_state()
+            for net in nets.values():
+                net.load_optimizer_state(tree)
+        grads = [rng.normal(0, scale, p.shape).astype(np.float32) for p in cpu.model.parameters()]
+        for net in nets.values():
+            for p, g in zip(net.model.parameters(), grads):
+                p.grad = torch.from_numpy(g).to(p.device, p.dtype)
+            net._apply_gradients()
+            net.steps += 1
+        assert int(card._count.cpu()) == int(cpu._count) == step + 1
+        np.testing.assert_allclose(float(card.optimizer.param_groups[0]["lr"]),
+                                   float(cpu.optimizer.param_groups[0]["lr"]), rtol=1e-6,
+                                   err_msg=str(step))
+    assert_close("four steps on shared gradients")
+    # The steps moved the parameters: the comparison is not vacuous.
+    assert max(float((cpu.model.state_dict()[k] - v).abs().max()) for k, v in start.items()) > 1e-5
+    if optimizer == "adam":
+        for p_card, p_cpu in zip(card.model.parameters(), cpu.model.parameters()):
+            for key in ("exp_avg", "exp_avg_sq"):
+                np.testing.assert_allclose(card.optimizer.state[p_card][key].cpu().numpy(),
+                                           cpu.optimizer.state[p_cpu][key].numpy(), rtol=1e-5,
+                                           atol=0, err_msg=key)
+            assert int(card.optimizer.state[p_card]["step"]) == 6
+    assert int(card.optimizer_state()["1"]["1"]["count"]) == 6 == int(tree["1"]["1"]["count"]) + 2

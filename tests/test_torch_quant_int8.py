@@ -473,8 +473,7 @@ def test_vggf_r5_int8_full_width_matches_dream_tpu(monkeypatch):
     monkeypatch.delenv("DREAM_INT8_IMPL", raising=False)
     cfg = jax_load_yaml(VGGF_CONFIG)
     cfg["architecture"]["compute_dtype"] = "float32"
-    net = DreamNetwork(copy.deepcopy(cfg), device="cpu")
-    net.load_network_params(VGGF_CHECKPOINT)
+    net = DreamNetwork.from_checkpoint(copy.deepcopy(cfg), VGGF_CHECKPOINT, device="cpu")
     frames = generate_synthetic_frames(2, (640, 480), net.keypoint_names, seed=99)
     process = make_batch_processor((640, 480), (400, 400), (400, 400), net.image_preprocessing(),
                                    net.image_normalization, include_belief_maps=False)

@@ -555,8 +555,7 @@ def r5_servers():
         "training": {"config": {"net_input_resolution": [96, 96],
                                 "optimizer": {"type": "adam", "learning_rate": 1e-4}}},
     }
-    torch_net = DreamNetwork(copy.deepcopy(cfg), device="cpu")
-    torch_net.load_network_params(R5_PARAMS)
+    torch_net = DreamNetwork.from_checkpoint(copy.deepcopy(cfg), R5_PARAMS, device="cpu")
     jax_net = jax_network.create_network_from_config_data(copy.deepcopy(cfg))
     jax_net.variables = jax.tree_util.tree_map(jnp.asarray, state_to_flax(torch_net.model.state_dict()))
     return torch_net, jax_net

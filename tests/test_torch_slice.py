@@ -93,8 +93,7 @@ def test_two_frame_slice_matches_jax(tmp_path):
 
     cfg = load_yaml(CONFIG)
     cfg["architecture"]["compute_dtype"] = "float32"
-    torch_net = DreamNetwork(cfg, device="cpu")
-    torch_net.load_network_params(PARAMS)
+    torch_net = DreamNetwork.from_checkpoint(cfg, PARAMS, device="cpu")
     gt = {"projections": frames["projections"], "positions": frames["positions"]}
     result = evaluate_frames(torch_net, frames["images"], gt, frames["camera_K"], batch_size=2)
 

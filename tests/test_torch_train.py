@@ -276,12 +276,15 @@ def test_scheduler_steps_the_optimizer_as_optax_counts():
                                                           "warmup_steps": 4}
     net = DreamNetwork(cfg, device="cpu")
     net.enable_training()
+    for p in net.model.parameters():
+        p.grad = torch.zeros_like(p)
     ref = optax.warmup_cosine_decay_schedule(0.0, 1e-4, 4, 20)
     for step in range(6):
-        np.testing.assert_allclose(net.optimizer.param_groups[0]["lr"], float(ref(step)), rtol=1e-6,
-                                   atol=1e-11)
-        net.optimizer.step()
-        net.scheduler.step()
+        assert int(net._count) == step
+        net._apply_gradients()  # the learning rate of step ``step``, from the count
+        np.testing.assert_allclose(float(net.optimizer.param_groups[0]["lr"]), float(ref(step)),
+                                   rtol=1e-6, atol=1e-11)
+    assert int(net._count) == 6
 
 
 @pytest.mark.parametrize("max_norm", [0.5, 50.0])

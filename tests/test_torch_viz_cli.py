@@ -63,8 +63,7 @@ def env(tmp_path_factory):
     data = str(root / "data")
     jax_generate_synthetic_ndds(data, n_frames=5, image_resolution=(160, 120), seed=4,
                                 out_of_frame_fraction=0.0)
-    net = DreamNetwork(network_config(), device="cpu")
-    net.load_network_params(R5_PARAMS)
+    net = DreamNetwork.from_checkpoint(network_config(), R5_PARAMS, device="cpu")
     net.save_network(str(root), "net")
     params = str(root / "net.msgpack")
     jax_net = jax_net_with(network_config(), load_flax_checkpoint(params))
@@ -178,8 +177,7 @@ def test_visualize_network_inference_ndds_matches_jax(env, monkeypatch, int8_fra
     dirs = {vt: str(drawn_dir / vt) for vt in vni.ALL_VIZ_TYPES}
     for d in dirs.values():
         os.makedirs(d)
-    net = DreamNetwork(network_config(), device="cpu")
-    net.load_network_params(env["params"])
+    net = DreamNetwork.from_checkpoint(network_config(), env["params"], device="cpu")
     for idx, frame in enumerate(vni._ndds_frames(net, env["data"], 1, None, 2, 2)):
         frame["raw_image"] = Image.fromarray(frame["raw_image"])
         frame["net_in_img"] = Image.fromarray(frame["net_in_img"])
@@ -208,8 +206,7 @@ def test_visualize_network_inference_image_dir(env):
     # frame and detections as dream_tpu's image-directory path gives them;
     # a truncated JPEG still raises.
     Image.open(os.path.join(env["data"], "000003.rgb.png")).save(frames_dir / "f3.jpg", quality=90)
-    net = DreamNetwork(network_config(), device="cpu")
-    net.load_network_params(env["params"])
+    net = DreamNetwork.from_checkpoint(network_config(), env["params"], device="cpu")
     ours = list(vni._image_dir_frames(net, str(frames_dir), 3, None))
     ref = list(jax_vni._image_dir_frames(env["jax_net"], str(frames_dir), 3, None))
     assert len(ours) == len(ref) == 1

@@ -159,8 +159,7 @@ def test_compress_checkpoint_matches_the_script(tmp_path, monkeypatch):
         assert a.read() == b.read()
     tree = load_flax_checkpoint(ours)
     assert tree["params"]["down1"]["conv0"]["kernel"].dtype == np.float16
-    reloaded = DreamNetwork(network_config(net_in=64), device="cpu")
-    reloaded.load_network_params(ours)
+    reloaded = DreamNetwork.from_checkpoint(network_config(net_in=64), ours, device="cpu")
     for name, t in reloaded.model.state_dict().items():
         np.testing.assert_array_equal(t.numpy(), net.model.state_dict()[name].numpy().astype(np.float16)
                                       .astype(np.float32), err_msg=name)
